@@ -1,0 +1,106 @@
+"""Mesh containers and the unified-buffer scene layout (host side, numpy).
+
+The reference concatenates every loaded mesh into one unified vertex buffer and
+one unified index buffer with per-mesh offsets (source/main.cpp:836-913).  The
+same layout feeds the port: the scene is built on the host in numpy and copied
+to the device once, in scene.GeometryBuffers.from_host.
+
+A copy of d3d12_deferred_renderer_tpu/models/meshlib.py (MeshData,
+SceneGeometry, build_scene_geometry): that package imports JAX at package
+import, so the port carries its own.  tests/test_torch_frame.py pins the two
+equal.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class MeshData:
+    """One mesh: SoA vertex arrays + local 0-based triangle indices
+    (struct Mesh / struct Vertex, main.cpp:27-45)."""
+
+    positions: np.ndarray  # [V, 3] float32
+    normals: np.ndarray    # [V, 3] float32
+    uvs: np.ndarray        # [V, 2] float32
+    indices: np.ndarray    # [I] uint32, I % 3 == 0
+    name: str = ""
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.positions.shape[0])
+
+    @property
+    def num_triangles(self) -> int:
+        return int(self.indices.shape[0] // 3)
+
+
+@dataclasses.dataclass
+class SceneGeometry:
+    """All meshes packed into unified buffers (main.cpp:836-913).
+
+    ``indices`` are globalized (local index + vertex_offsets[mesh]);
+    ``tri_mesh_id`` gives every triangle its mesh."""
+
+    positions: np.ndarray       # [V, 3] float32
+    normals: np.ndarray         # [V, 3] float32
+    uvs: np.ndarray             # [V, 2] float32
+    indices: np.ndarray         # [I] int32
+    tri_mesh_id: np.ndarray     # [I // 3] int32
+    vertex_mesh_id: np.ndarray  # [V] int32
+    vertex_offsets: np.ndarray  # [M] int32
+    vertex_counts: np.ndarray   # [M] int32
+    index_offsets: np.ndarray   # [M] int32
+    index_counts: np.ndarray    # [M] int32
+    names: tuple
+
+    @property
+    def num_meshes(self) -> int:
+        return int(self.vertex_offsets.shape[0])
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.positions.shape[0])
+
+    @property
+    def num_triangles(self) -> int:
+        return int(self.indices.shape[0] // 3)
+
+
+def build_scene_geometry(meshes: list[MeshData]) -> SceneGeometry:
+    if not meshes:
+        raise ValueError("scene needs at least one mesh")
+    v_off, i_off = [], []
+    vo = io = 0
+    for m in meshes:
+        v_off.append(vo)
+        i_off.append(io)
+        vo += m.num_vertices
+        io += int(m.indices.shape[0])
+    positions = np.concatenate([m.positions for m in meshes], axis=0)
+    normals = np.concatenate([m.normals for m in meshes], axis=0)
+    uvs = np.concatenate([m.uvs for m in meshes], axis=0)
+    indices = np.concatenate(
+        [m.indices.astype(np.int64) + off for m, off in zip(meshes, v_off)], axis=0
+    ).astype(np.int32)
+    tri_mesh_id = np.concatenate(
+        [np.full(m.num_triangles, k, np.int32) for k, m in enumerate(meshes)]
+    )
+    vertex_mesh_id = np.concatenate(
+        [np.full(m.num_vertices, k, np.int32) for k, m in enumerate(meshes)]
+    )
+    return SceneGeometry(
+        positions=positions.astype(np.float32),
+        normals=normals.astype(np.float32),
+        uvs=uvs.astype(np.float32),
+        indices=indices,
+        tri_mesh_id=tri_mesh_id,
+        vertex_mesh_id=vertex_mesh_id,
+        vertex_offsets=np.asarray(v_off, np.int32),
+        vertex_counts=np.asarray([m.num_vertices for m in meshes], np.int32),
+        index_offsets=np.asarray(i_off, np.int32),
+        index_counts=np.asarray([int(m.indices.shape[0]) for m in meshes], np.int32),
+        names=tuple(m.name for m in meshes),
+    )
