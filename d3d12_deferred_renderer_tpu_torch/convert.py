@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .scene import Camera, GeometryBuffers, Lights, Materials, SceneState
+from .scene import Camera, GeometryBuffers, Lights, Materials, SceneState, _dev
 
 FIELDS = (
     "geometry.fv_pos_cols",
@@ -52,7 +52,9 @@ def arrays_from_state(state) -> dict:
 
 
 def scene_from_arrays(arrays: dict, device=None) -> SceneState:
-    """This package's SceneState from a dict made by arrays_from_state."""
+    """This package's SceneState from a dict made by arrays_from_state, on
+    `device` (the CUDA device when None)."""
+    device = _dev(device)
     missing = [k for k in FIELDS if k not in arrays]
     if missing:
         raise KeyError(f"scene arrays lack {missing}")

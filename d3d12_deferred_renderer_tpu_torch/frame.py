@@ -1,9 +1,23 @@
 """The frame: advance the scene, render it.
 
-The counterpart of d3d12_deferred_renderer_tpu/frame.py for the fused frame:
-triangle setup (kernel) -> binning -> fused tile renderer (kernel) -> uint8.
-PyTorch runs it eagerly, one kernel launch after another on the current
-stream, with no host synchronisation inside a frame.
+The counterpart of d3d12_deferred_renderer_tpu/frame.py, with "on the TPU"
+read as "on the card".  Two paths:
+
+- the fused frame (cfg.fused with cfg.use_pallas, PBR, quantized G-buffer):
+  triangle setup (kernel) -> binning -> fused tile renderer (kernel) -> uint8;
+- the staged frame, every other ported config: triangle setup (kernel) ->
+  raster -> G-buffer encode -> Lambert, or the per-tile light cull + PBR
+  lighting -> tonemap + gamma -> uint8.  With cfg.use_pallas the raster is
+  the tile raster kernel over the binned records (ops/raster_tiles) and the
+  PBR lighting the G-buffer lighting kernel on 8 x 128 tiles
+  (ops/lighting_cuda); without it, the whole-frame reference rasterizer
+  (ops/raster_ref) and the 32-pixel-tile plain lighting
+  (lighting.shade_pbr_tiled), as the JAX package's CPU path and its golden
+  images use.
+
+A kernel's wrapper runs the kernel on CUDA tensors and its plain version on
+CPU tensors.  PyTorch runs the frame eagerly, one launch after another on
+the current stream.
 """
 from __future__ import annotations
 
@@ -12,21 +26,33 @@ from typing import Tuple
 import torch
 
 from .config import RendererConfig
+from .ops import post
 from .ops.fused import render_fused
+from .ops.gbuffer import GBuffer, encode_gbuffer
+from .ops.lighting import shade_lambert, shade_pbr_tiled
+from .ops.lighting_cuda import shade_pbr_tiled_kernel
+from .ops.raster_ref import rasterize_packed
+from .ops.raster_tiles import rasterize_binned
+from .ops.transform import setup_frame_triangles
 from .scene import SceneState, animate
+
+
+def _fused_eligible(cfg: RendererConfig) -> bool:
+    """The fused tile renderer covers the PBR frame with a quantized
+    G-buffer; cfg.use_pallas off takes the staged path, as in JAX."""
+    return cfg.fused and cfg.use_pallas and cfg.shading == "pbr" and cfg.quantize_gbuffer
+
 
 # Configs outside the ported slice, with the ROADMAP.md Queue 1 item that
 # ports them.
 _NOT_PORTED = (
-    (lambda c: c.shading != "pbr", "Lambert shading and the staged path (item 4)"),
-    (lambda c: not c.fused, "the staged (non-fused) path (items 4 and 8)"),
-    (lambda c: not c.quantize_gbuffer, "the unquantized staged G-buffer (item 4)"),
     (lambda c: c.shadows, "shadows (item 7)"),
     (lambda c: c.normal_mapping, "normal mapping (item 7)"),
     (lambda c: c.bloom, "bloom (item 7)"),
     (lambda c: c.fxaa, "FXAA (item 7)"),
     (lambda c: c.deferred_directional, "the deferred-directional split (item 7)"),
-    (lambda c: not c.inkernel_light_cull, "the depth prepass + tile light cull (item 7)"),
+    (lambda c: _fused_eligible(c) and not c.inkernel_light_cull,
+     "the fused frame's depth prepass + tile light cull (item 7)"),
     (lambda c: c.supersample > 1, "supersampling (item 9)"),
 )
 
@@ -40,14 +66,37 @@ def check_ported(cfg: RendererConfig) -> None:
             )
 
 
+def _rasterize(tris, cfg: RendererConfig):
+    """(FragmentPlanes, overflow): the tile raster kernel over the binned
+    records with cfg.use_pallas, else the whole-frame reference raster."""
+    if cfg.use_pallas:
+        return rasterize_binned(tris.packed, tris.aabb, tris.valid, cfg, return_overflow=True)
+    frags = rasterize_packed(tris.packed, cfg.height, cfg.width)
+    return frags, torch.zeros((), dtype=torch.int32, device=tris.packed.device)
+
+
 def render_stats(state: SceneState, cfg: RendererConfig):
     """One frame -> (uint8 [H, W, 3], {"overflow": int32 tensor}): the count
     of tiles that dropped triangles or lights at a capacity cap, plus
     binning-tier budget excess.  Zero on every supported config; a loud
     signal, never a silent drop, otherwise."""
     check_ported(cfg)
-    frame, overflow = render_fused(state, cfg, return_overflow=True)
-    return frame, {"overflow": overflow}
+    if _fused_eligible(cfg):
+        frame, overflow = render_fused(state, cfg, return_overflow=True)
+        return frame, {"overflow": overflow}
+
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    frags, overflow = _rasterize(tris, cfg)
+    gb = encode_gbuffer(frags, state.materials, cfg)
+    if cfg.shading == "lambert":
+        color = shade_lambert(gb, state.lights, cfg)
+    else:
+        shade = shade_pbr_tiled_kernel if cfg.use_pallas else shade_pbr_tiled
+        hdr, l_overflow = shade(gb, state.lights, cfg, view_proj, state.camera.eye,
+                                return_overflow=True)
+        overflow = overflow + l_overflow
+        color = post.apply_post(hdr, cfg)
+    return post.to_uint8(color), {"overflow": overflow}
 
 
 def render(state: SceneState, cfg: RendererConfig) -> torch.Tensor:
@@ -57,8 +106,17 @@ def render(state: SceneState, cfg: RendererConfig) -> torch.Tensor:
     return render_stats(state, cfg)[0]
 
 
+def render_gbuffer(state: SceneState, cfg: RendererConfig) -> GBuffer:
+    """The geometry pass only (for tests and tools): the G-buffer with its
+    format quantization."""
+    check_ported(cfg)
+    tris, _ = setup_frame_triangles(state, cfg)
+    return encode_gbuffer(_rasterize(tris, cfg)[0], state.materials, cfg)
+
+
 def step_frame(state: SceneState, cfg: RendererConfig) -> Tuple[SceneState, torch.Tensor]:
     """One iteration of the reference's loop (main.cpp:161-342): advance the
     animation clock, render."""
     state = animate(state, cfg.yaw_per_frame, cfg)
     return state, render(state, cfg)
+

@@ -1,4 +1,5 @@
 from .meshlib import MeshData, SceneGeometry, build_scene_geometry
+from .obj import load_obj
 from . import procedural
 
-__all__ = ["MeshData", "SceneGeometry", "build_scene_geometry", "procedural"]
+__all__ = ["MeshData", "SceneGeometry", "build_scene_geometry", "load_obj", "procedural"]

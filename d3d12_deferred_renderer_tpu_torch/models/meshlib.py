@@ -36,6 +36,47 @@ class MeshData:
     def num_triangles(self) -> int:
         return int(self.indices.shape[0] // 3)
 
+    @property
+    def has_normals(self) -> bool:
+        """True only when EVERY referenced vertex carries a nonzero normal — a
+        mesh with `vn` on just some faces (mixed exporters) must still get
+        generated normals for the zero rest, or those triangles shade black
+        (the exact reference bug generate_normals exists to avoid)."""
+        if self.indices.size == 0:
+            return bool(np.any(self.normals))
+        used = self.normals[self.indices.astype(np.int64)]
+        return bool(np.all(np.any(used != 0.0, axis=-1)))
+
+    def with_flat_normals(self) -> "MeshData":
+        """Faceted re-mesh with per-face geometric normals.
+
+        For OBJ files without `vn` data (the reference would shade those black:
+        its loader leaves normals zero-initialized, main.cpp:1010-1025 — another
+        latent case its assets never hit).  Each triangle gets its own 3 vertices
+        carrying the face normal, oriented by the winding (counter-clockwise from
+        outside -> outward normal)."""
+        idx = self.indices.reshape(-1, 3).astype(np.int64)
+        p0 = self.positions[idx[:, 0]]
+        p1 = self.positions[idx[:, 1]]
+        p2 = self.positions[idx[:, 2]]
+        # Sign convention: triangles wound front-facing under the reference
+        # rasterizer state (visually CCW from outside; see ops/transform.py) get
+        # OUTWARD normals — cross(e2, e1) under this framework's LH conventions.
+        n = np.cross(p2 - p0, p1 - p0)
+        length = np.linalg.norm(n, axis=-1, keepdims=True)
+        n = n / np.where(length == 0.0, 1.0, length)
+        positions = np.stack([p0, p1, p2], axis=1).reshape(-1, 3)
+        normals = np.repeat(n, 3, axis=0)
+        uvs = self.uvs[idx.reshape(-1)]
+        indices = np.arange(idx.size, dtype=np.uint32)
+        return MeshData(
+            positions=positions.astype(np.float32),
+            normals=normals.astype(np.float32),
+            uvs=uvs.astype(np.float32),
+            indices=indices,
+            name=self.name,
+        )
+
 
 @dataclasses.dataclass
 class SceneGeometry:

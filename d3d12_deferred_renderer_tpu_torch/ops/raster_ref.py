@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..xmath import fma
 from .transform import (
     TRI_AREA, TRI_MESH_ID, TRI_N0, TRI_RW0, TRI_UV0, TRI_VALID, TRI_X0, TRI_Z0,
 )
@@ -39,13 +40,6 @@ class FragmentPlanes(NamedTuple):
     normal: torch.Tensor   # [H, W, 3] world-space, unnormalized interpolant
     uv: torch.Tensor       # [H, W, 2]
     mesh_id: torch.Tensor  # [H, W] int32, -1 where no fragment
-
-
-def fma(a, b, c):
-    """a * b + c with one rounding: the float64 product is exact and the
-    float64 sum rounds once more before float32 (a double rounding that
-    differs from a true fused multiply-add only on exact float64 ties)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _sum3(b, a0, a1, a2):
@@ -109,7 +103,8 @@ def rasterize_packed(packed: torch.Tensor, height: int, width: int) -> FragmentP
     normal = torch.zeros((3, n), dtype=torch.float32, device=dev)
     uv = torch.zeros((2, n), dtype=torch.float32, device=dev)
     mesh_id = torch.full((1, n), -1, dtype=torch.int32, device=dev)
-    for t in range(packed.shape[0]):
+    # Records that are not valid (culled, clipped away) never pass: skip them.
+    for t in torch.nonzero(packed[:, TRI_VALID] > 0.0).flatten().tolist():
         rec = packed[t : t + 1]
         covered, z, bs = triangle_fragments(rec, px, py)
         passes = covered & (rec[:, TRI_VALID : TRI_VALID + 1] > 0.0) & (z < depth) & (z >= 0.0) & (z <= 1.0)

@@ -2,7 +2,9 @@
 
 The counterpart of d3d12_deferred_renderer_tpu/scene.py.  Every tensor of a
 SceneState lies on one device, chosen when the scene is made; the frame reads
-that device from the tensors.  The state is immutable: ``animate`` returns a
+that device from the tensors.  Every constructor below takes ``device=``;
+without it the tensors go to the CUDA device (``default_device``), and a
+caller who wants the CPU asks for it with ``device="cpu"``.  The state is immutable: ``animate`` returns a
 new SceneState that shares the unchanged tensors.
 
 The animation rule matches main.cpp:200-207: the clock advances 0.01 rad per
@@ -23,6 +25,21 @@ from .xmath import XM_2PI
 F32 = torch.float32
 
 
+def default_device() -> torch.device:
+    """The device a scene lives on when the caller names none: the CUDA
+    device.  Raises where there is none; it never falls back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the renderer runs on the GPU by default; "
+            "pass device=\"cpu\" to build the scene on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def _dev(device) -> torch.device:
+    return default_device() if device is None else torch.device(device)
+
+
 def _t(a, device, dtype=F32) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -35,6 +52,7 @@ class Camera:
 
     @staticmethod
     def from_config(cfg: RendererConfig, device=None) -> "Camera":
+        device = _dev(device)
         return Camera(
             eye=_t(cfg.eye, device), at=_t(cfg.at, device), up=_t(cfg.up, device)
         )
@@ -53,6 +71,7 @@ class Lights:
 
     @staticmethod
     def directional_only(cfg: RendererConfig, device=None) -> "Lights":
+        device = _dev(device)
         return Lights(
             direction=_t(cfg.light_direction, device),
             color=_t(cfg.light_color, device),
@@ -75,6 +94,7 @@ class Materials:
 
     @staticmethod
     def from_config(cfg: RendererConfig, num_meshes: int, device=None) -> "Materials":
+        device = _dev(device)
         return Materials(
             albedo=_t(np.tile(np.asarray([cfg.albedo], np.float32), (num_meshes, 1)), device),
             metalness=torch.full((num_meshes,), cfg.metalness, dtype=F32, device=device),
@@ -85,6 +105,7 @@ class Materials:
     def varied(num_meshes: int, seed: int = 7, device=None) -> "Materials":
         """Distinct per-mesh materials, drawn from the same numpy stream as
         the JAX package's Materials.varied."""
+        device = _dev(device)
         rng = np.random.default_rng(seed)
         return Materials(
             albedo=_t(rng.uniform(0.1, 0.9, (num_meshes, 3)).astype(np.float32), device),
@@ -107,6 +128,7 @@ class GeometryBuffers:
 
     @staticmethod
     def from_host(geo: SceneGeometry, device=None) -> "GeometryBuffers":
+        device = _dev(device)
         idx = geo.indices
         T = idx.shape[0] // 3
 
@@ -155,8 +177,9 @@ def make_scene(
     materials: Optional[Materials] = None,
     device=None,
 ) -> SceneState:
-    """Upload a host scene to `device`.  `lights` and `materials`, when given,
-    must already lie there."""
+    """Upload a host scene to `device` (the CUDA device when None).  `lights`
+    and `materials`, when given, must already lie there."""
+    device = _dev(device)
     m = geo.num_meshes
     if placement == "reference":
         pos = np.zeros((m, 3), np.float32)
@@ -216,6 +239,7 @@ def random_point_lights(
     """N colored point lights, drawn from the same numpy stream as the JAX
     package's random_point_lights."""
     cfg = cfg or RendererConfig()
+    device = _dev(device)
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
     pos[:, 1] = rng.uniform(-0.5, 3.0, n).astype(np.float32)

@@ -1,19 +1,20 @@
 """Build, load and call the hand-written CUDA kernels in csrc/.
 
 The counterpart of utils/native_build.py for the GPU kernels.  At first use
-``library()`` compiles every csrc/*.cu into ONE shared library with a plain C
-interface:
+``library()`` compiles each csrc/*.cu to an object file, one nvcc process per
+source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC
+         -Xcompiler -fPIC -Xptxas -v -c
 
 (no --use_fast_math; -fmad=false keeps each kernel's mul+add chains in the
 two-rounding form its plain PyTorch version computes; -Xptxas -v reports
-registers and spills in the build log), writes it to
-build/torch_kernels/ beside the package, named by a hash of the sources and
-flags, and loads it with ctypes.  A library that already exists under that
-name is reused.  The toolkit is found through CUDA_HOME, then PATH, then
-/usr/local/cuda.  A failed build raises: there is no fallback.
+registers and spills in the build log), links them into ONE shared library
+with a plain C interface (nvcc -shared), writes it to build/torch_kernels/
+beside the package, named by a hash of the sources and flags, and loads it
+with ctypes.  A library that already exists under that name is reused.  The
+toolkit is found through CUDA_HOME, then PATH, then /usr/local/cuda.  A
+failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -31,9 +33,9 @@ import torch
 PKG_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P = ctypes.c_void_p
@@ -47,6 +49,11 @@ SIGNATURES = {
     # counts, offs, records, lights, n_lights, mats, uniforms, nty, ntx,
     # tile_h, tile_w, ik_slots, inv_gamma, color, tile_overflow, stream
     "fused_tiles_launch": (P, P, P, P, I, P, P, I, I, I, I, I, F, P, P, P),
+    # counts, offs, records, nty, ntx, tile_h, tile_w, planes, stream
+    "raster_tiles_launch": (P, P, P, I, I, I, I, P, P),
+    # planes, n_planes, lights, n_rows, ids, lk, counts, uniforms, nty, ntx,
+    # tile_h, tile_w, gamma, hdr, stream
+    "shade_tiles_launch": (P, I, P, I, P, I, P, P, I, I, I, I, F, P, P),
 }
 
 
@@ -87,18 +94,24 @@ def library() -> ctypes.CDLL:
     BuildInfo.path = path
     BuildInfo.cached = os.path.exists(path)
     if not BuildInfo.cached:
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cu = [s for s in srcs if s.endswith(".cu")]
+        nvcc, cu = _nvcc(), [s for s in srcs if s.endswith(".cu")]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True, timeout=900,
-        )
-        BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BuildInfo.log}")
-        os.replace(tmp, path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cu]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                     for s, o in zip(cu, objs)]
+            logs = [f"== {os.path.basename(s)}\n{p.communicate()[0]}" for s, p in zip(cu, procs)]
+            if all(p.returncode == 0 for p in procs):
+                link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs],
+                                      capture_output=True, text=True)
+                logs.append(f"== link\n{link.stdout}{link.stderr}")
+                if link.returncode == 0:
+                    os.replace(os.path.join(tmp, "lib.so"), path)
+            BuildInfo.seconds = time.perf_counter() - t0
+            BuildInfo.log = "".join(logs)
+        if not os.path.exists(path):
+            raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
     lib = ctypes.CDLL(path)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -30,6 +30,8 @@ __all__ = [
     "model_matrix",
     "normalize_safe",
     "matmul4",
+    "fma",
+    "powf",
 ]
 
 XM_PI = 3.141592653589793
@@ -53,9 +55,28 @@ def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (p[0] + p[1]) + (p[2] + p[3])
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c with one rounding: the float64 product is exact and the
+    float64 sum rounds once more before float32 (a double rounding that
+    differs from a true fused multiply-add only on exact float64 ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def powf(x: torch.Tensor, e: float) -> torch.Tensor:
+    """x ** e for float32 x, rounded as XLA rounds jnp.power: the exponent
+    taken as a float32, the power evaluated in float64 and rounded once."""
+    e32 = float(torch.tensor(e, dtype=F32))
+    return torch.pow(x.double(), e32).float()
+
+
 def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean length over the last axis (length 3), rounded as XLA
+    rounds jnp.linalg.norm: its reduction contracts into fused multiply-adds,
+    sqrt(fma(z, z, fma(y, y, x * x))), and the square root is correctly
+    rounded (taken in float64: torch's float32 sqrt on the CPU is not
+    always)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    return torch.sqrt(x * x + y * y + z * z)[..., None]
+    return torch.sqrt(fma(z, z, fma(y, y, x * x)).double()).float()[..., None]
 
 
 def normalize_safe(v: torch.Tensor) -> torch.Tensor:

@@ -38,8 +38,9 @@ def _jax_scene():
 def _port_scene():
     geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4, rings=8, segments=16))
     return tp.make_scene(
-        geo, TCFG, lights=tp.random_point_lights(24, cfg=TCFG, radius=1.2),
-        placement="grid", materials=tp.Materials.varied(geo.num_meshes),
+        geo, TCFG, lights=tp.random_point_lights(24, cfg=TCFG, radius=1.2, device="cpu"),
+        placement="grid", materials=tp.Materials.varied(geo.num_meshes, device="cpu"),
+        device="cpu",
     )
 
 
@@ -112,7 +113,12 @@ def test_port_imports_no_jax():
     code = (
         "import sys, d3d12_deferred_renderer_tpu_torch as p, "
         "d3d12_deferred_renderer_tpu_torch.ops.setup_cuda, "
-        "d3d12_deferred_renderer_tpu_torch.ops.fused; "
+        "d3d12_deferred_renderer_tpu_torch.ops.fused, "
+        "d3d12_deferred_renderer_tpu_torch.ops.raster_tiles, "
+        "d3d12_deferred_renderer_tpu_torch.ops.lighting_cuda, "
+        "d3d12_deferred_renderer_tpu_torch.ops.lighting, "
+        "d3d12_deferred_renderer_tpu_torch.ops.post, "
+        "d3d12_deferred_renderer_tpu_torch.models.obj; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'d3d12_deferred_renderer_tpu.'))]; "
         "assert not bad and 'd3d12_deferred_renderer_tpu' not in sys.modules, bad"
@@ -121,10 +127,19 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(shading="lambert"), dict(fused=False), dict(shadows=True), dict(normal_mapping=True),
-    dict(bloom=True), dict(fxaa=True), dict(deferred_directional=True),
-    dict(inkernel_light_cull=False), dict(supersample=2),
+    dict(shadows=True), dict(normal_mapping=True), dict(bloom=True), dict(fxaa=True),
+    dict(deferred_directional=True), dict(inkernel_light_cull=False), dict(supersample=2),
 ], ids=lambda c: next(iter(c)))
 def test_configs_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tp.frame.check_ported(dataclasses.replace(TCFG, **change))
+
+
+@pytest.mark.parametrize("change", [
+    dict(shading="lambert"), dict(fused=False), dict(use_pallas=False),
+    dict(quantize_gbuffer=False), dict(fused=False, inkernel_light_cull=False),
+], ids=lambda c: "_".join(c))
+def test_staged_configs_are_ported(change):
+    """The staged frame takes Lambert, the unfused and unquantized PBR
+    frames; the in-kernel cull switch only matters to the fused frame."""
+    tp.frame.check_ported(dataclasses.replace(TCFG, **change))

@@ -62,7 +62,7 @@ def _port_frame(state, cfg):
     binned = bin_triangles(
         packed, torch.from_numpy(np.array(tris.aabb)), torch.from_numpy(np.array(tris.valid)), tcfg
     )
-    port_state = tp.scene_from_arrays(tp.arrays_from_state(state))
+    port_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
     nty, ntx = -(-cfg.height // cfg.tile_h), -(-cfg.width // cfg.tile_w)
     L = port_state.lights.num_point
     color, tile_overflow = fused.fused_tiles_reference(
@@ -125,7 +125,8 @@ def test_wrapper_runs_plain_version_on_cpu():
     nothing."""
     cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=128, height=16, fused=True)
     geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=2, rings=6, segments=8))
-    state = tp.make_scene(geo, cfg, lights=tp.random_point_lights(8, cfg=cfg), placement="grid")
+    state = tp.make_scene(geo, cfg, lights=tp.random_point_lights(8, cfg=cfg, device="cpu"),
+                          placement="grid", device="cpu")
     tris, view_proj = tp.ops.transform.setup_frame_triangles(state, cfg)
     binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
     args = (binned.counts, binned.offs, binned.stream, fused.build_light_table(state.lights),

@@ -59,7 +59,7 @@ def pairs():
     for name, (cfg, build, cull, _) in CASES.items():
         state = dxr.animate(build(cfg))
         ref, _ = jax_setup(state, cfg, cull=cull)
-        port_state = tp.scene_from_arrays(tp.arrays_from_state(state))
+        port_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
         got, _ = setup_frame_triangles(port_state, tp.RendererConfig(**dataclasses.asdict(cfg)), cull=cull)
         out[name] = (ref, got)
     return out
@@ -83,7 +83,7 @@ def test_wrapper_runs_plain_version_on_cpu():
     and launches nothing."""
     cfg = tp.RendererConfig(width=128, height=64)
     geo = tp.build_scene_geometry([tp.procedural.cube(1.0)])
-    state = tp.animate(tp.make_scene(geo, cfg))
+    state = tp.animate(tp.make_scene(geo, cfg, device="cpu"))
     model, _, mvp = frame_matrices(state, cfg)
     g = state.geometry
     args = (g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id, mvp, model, 128, 64)
