@@ -20,16 +20,43 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              flagship G-buffer (256 lights), without and with a visibility
              plane: HDR within rtol 2e-4, atol 2e-5, after tonemap + gamma
              max |du8| <= 1 on fewer than 1% of pixels, equal tile counts.
-6. main    — the fused flagship frame through the entry points (animate +
+6. k4      — the depth-only setup kernel against its plain version in the
+             light's view of the flagship scene, cull none: records and
+             boxes bit-equal.
+7. k3      — the depth-only raster kernel: the 1024^2 shadow map on 16 x 128
+             tiles bit-equal to its plain version, and on the display grid
+             bit-equal to the tile raster kernel's depth plane.
+8. k8      — the bump kernel against its plain version on the flagship
+             frame's fragments: normals within 1e-6 (both round every
+             operation once).
+9. k2v     — the fused tile kernel's config-4 variant (bump, linear HDR, the
+             split's aux planes) at 1920x1080: depth and mesh-id planes
+             bit-equal to the tile raster kernel's on the same binned input,
+             the depth, normal and mesh-id planes bit-equal to the plain
+             version's, the frame within 1 u8 LSB of the plain version on
+             < 1% of pixels.
+10. k5     — the directional resolve kernel against its plain version on
+             the k2v planes and the frame's PCF visibility: HDR within rtol
+             2e-4, atol 2e-5.
+11. main   — the fused flagship frame through the entry points (animate +
              render_stats, step_frame): a 64-step sweep of the whole yaw
              orbit with overflow 0, launch counts equal to the frames
              rendered, a frame that is not blank and agrees with the plain
              chain, and ms/frame from CUDA events over 3 x 30 frames.
-7. staged  — one line for config 1 (the reference's frame: Lambert, cube +
+12. staged — one line for config 1 (the reference's frame: Lambert, cube +
              pyramid, 1280x720) and one for the staged flagship (fused=False,
              1920x1080, 256 lights): the same sweep, launch counts and timing
              through tp.step_frame / tp.render_stats; overflow 0 for config
              1, equal to the plain chain's at every 4th step for the flagship.
+13. config4 — one line for each config-4 path (shadows + bump + bloom on the
+             flagship scene, 1024^2 shadow map): the fused frame with the
+             deferred-directional split and the staged frame (fused=False):
+             the same sweep (overflow 0; staged: equal to the plain chain's
+             at every 4th step), launches, the last frame against its plain
+             chain and the timing.
+14. parity — bench.py's two 256x64 parity blocks ("pbr" and "config4"),
+             the fused frame against the staged frame through the kernels:
+             mean |du8| <= 1 and at most 2% of pixels more than 4 LSB off.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and the
 last line {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
@@ -110,7 +137,7 @@ def small_scene(tp, cfg, device):
 
 def k2_inputs(tp, state, cfg):
     """Setup + binning of one frame -> the tile renderer's arguments."""
-    from d3d12_deferred_renderer_tpu_torch.ops import fused
+    from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting, lighting_cuda
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.transform import setup_frame_triangles
 
@@ -120,7 +147,8 @@ def k2_inputs(tp, state, cfg):
     args = (
         binned.counts, binned.offs, binned.stream, fused.build_light_table(state.lights),
         fused.build_material_table(state.materials, cfg.gamma),
-        fused.build_uniforms(state, cfg, view_proj),
+        lighting_cuda.make_uniforms(state.camera.eye, state.lights, cfg,
+                                    lighting.inverse_view_proj(view_proj), cfg.width, cfg.height),
     )
     kw = dict(
         nty=-(-cfg.height // cfg.tile_h), ntx=-(-cfg.width // cfg.tile_w),
@@ -142,6 +170,15 @@ RASTER_OPS_PER_RECORD_PIXEL = 26
 SHADE_OPS_PER_PIXEL = 130
 SHADE_OPS_PER_PIXEL_LIGHT = 120
 SETUP_OPS_PER_TRIANGLE = 300
+SETUP_DEPTH_OPS_PER_TRIANGLE = 200
+BUMP_OPS_PER_PIXEL = 150     # world from depth + bump.cuh
+RESOLVE_OPS_PER_PIXEL = 100  # world from depth + view + directional GGX
+
+# The config-4 flags (tools/bench_configs.py's config-4 row): shadows,
+# procedural bump and bloom, the deferred-directional split with the
+# in-kernel light cull, full-resolution PCF.
+CONFIG4_FLAGS = dict(shadows=True, normal_mapping=True, bloom=True, deferred_directional=True,
+                     inkernel_light_cull=True, max_lights_per_tile=128, shadow_vis_downsample=1)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -173,13 +210,36 @@ def config1_scene(tp, cfg, device):
     return geo, tp.make_scene(geo, cfg, device=device)
 
 
+def shadow_plain(state, cfg, raster: bool = True):
+    """The shadow map by the plain versions on the card: depth-only setup,
+    binning, depth raster -> (depth [S, S] or None, light_vp, overflow)."""
+    from d3d12_deferred_renderer_tpu_torch import xmath
+    from d3d12_deferred_renderer_tpu_torch.ops import raster_tiles, shadows
+    from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
+    from d3d12_deferred_renderer_tpu_torch.ops.transform import setup_depth_reference
+
+    S = cfg.shadow_map_size
+    g = state.geometry
+    lvp = shadows.light_view_proj(state.lights.direction)
+    scfg = shadows.shadow_bin_config(cfg, g.tri_mesh_id.shape[0])
+    model = xmath.model_matrix(state.position, state.orientation, state.scale)
+    tris = setup_depth_reference(g.fv_pos_cols, g.tri_mesh_id, xmath.matmul4_fma(model, lvp), S, S)
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, scfg)
+    depth = None
+    if raster:
+        depth = raster_tiles.raster_depth_reference(
+            b.counts, b.offs, b.stream, nty=-(-S // scfg.tile_h), ntx=-(-S // scfg.tile_w),
+            tile_h=scfg.tile_h, tile_w=scfg.tile_w)[:S, :S]
+    return depth, lvp, b.overflow
+
+
 def staged_plain_chain(state, cfg, shade: bool = True):
     """The staged frame by the plain versions on the card: plain setup,
-    binning, plain tile raster, G-buffer, Lambert or the light cull + plain
-    lighting, post.  Returns (uint8 frame or None, overflow, light cull or
-    None)."""
+    binning, plain tile raster, [plain bump], G-buffer, Lambert or [the
+    plain shadow map + PCF] + the light cull + plain lighting, post.
+    Returns (uint8 frame or None, overflow, light cull or None)."""
     import torch
-    from d3d12_deferred_renderer_tpu_torch.ops import lighting, lighting_cuda, post
+    from d3d12_deferred_renderer_tpu_torch.ops import bump, lighting, lighting_cuda, post, shadows
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.gbuffer import encode_gbuffer
     from d3d12_deferred_renderer_tpu_torch.ops.raster_tiles import (
@@ -192,19 +252,35 @@ def staged_plain_chain(state, cfg, shade: bool = True):
     H, W, TH, TW = cfg.height, cfg.width, cfg.tile_h, cfg.tile_w
     nty, ntx = -(-H // TH), -(-W // TW)
     model, view_proj, mvp = frame_matrices(state, cfg)
+    inv_vp = lighting.inverse_view_proj(view_proj)
     g = state.geometry
     tris = setup_triangles_reference(g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id,
                                      mvp, model, W, H)
     binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
     planes = raster_tiles_reference(binned.counts, binned.offs, binned.stream,
                                     nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)
-    gb = encode_gbuffer(fragments_from_planes(planes, H, W), state.materials, cfg)
+    frags = fragments_from_planes(planes, H, W)
+    if cfg.normal_mapping:
+        n = bump.bump_tiles_reference(bump.bump_planes(frags, nty * TH, ntx * TW),
+                                      bump.bump_uniforms(inv_vp, W, H), nty=nty, ntx=ntx, tile_h=TH,
+                                      tile_w=TW, strength=cfg.bump_strength, freq=cfg.bump_frequency)
+        frags = frags._replace(normal=n[:, :H, :W].permute(1, 2, 0))
+    gb = encode_gbuffer(frags, state.materials, cfg)
     overflow, tl = binned.overflow, None
     if cfg.shading == "lambert":
         color = lighting.shade_lambert(gb, state.lights, cfg) if shade else None
+        if shade and cfg.fxaa:
+            color = post.fxaa(color)
     else:
         li = state.lights
-        inv_vp = lighting.inverse_view_proj(view_proj)
+        vis = None
+        if cfg.shadows:
+            sd, lvp, s_ovf = shadow_plain(state, cfg, raster=shade)
+            if sd is None:  # overflow only: the PCF cap reads the depth alone
+                sd = torch.ones((cfg.shadow_map_size,) * 2, device=gb.depth.device)
+            vis, v_ovf = shadows.shadow_visibility(gb.depth, view_proj, sd, lvp, cfg,
+                                                   return_overflow=True, inv_vp=inv_vp)
+            overflow = overflow + s_ovf + v_ovf
         tl = lighting.cull_lights_to_tiles(
             gb.depth, li, cfg, view_proj, tile=(TH, TW),
             max_per_tile=min(li.num_point, cfg.max_live_lights_per_tile), inv_vp=inv_vp,
@@ -213,7 +289,7 @@ def staged_plain_chain(state, cfg, shade: bool = True):
         color = None
         if shade:
             hdr = lighting_cuda.shade_tiles_reference(
-                lighting_cuda.gbuffer_planes(gb, nty * TH, ntx * TW),
+                lighting_cuda.gbuffer_planes(gb, nty * TH, ntx * TW, vis),
                 lighting_cuda.build_light_table(li), tl.indices.reshape(nty * ntx, -1),
                 tl.counts.reshape(-1),
                 lighting_cuda.make_uniforms(state.camera.eye, li, cfg, inv_vp, W, H),
@@ -222,6 +298,46 @@ def staged_plain_chain(state, cfg, shade: bool = True):
             color = post.apply_post(hdr[:, :H, :W].permute(1, 2, 0), cfg)
     frame = post.to_uint8(color) if color is not None else None
     return frame, overflow, tl
+
+
+def fused_plain_chain(state, cfg):
+    """The fused frame by the plain versions on the card: plain setup,
+    binning, the plain tile renderer and, with the split, the plain shadow
+    map, PCF and plain resolve.  Returns (uint8 frame, overflow, the tile
+    renderer's planes)."""
+    from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting, lighting_cuda
+    from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
+    from d3d12_deferred_renderer_tpu_torch.ops.transform import (
+        frame_matrices, setup_triangles_reference,
+    )
+
+    H, W, TH, TW = cfg.height, cfg.width, cfg.tile_h, cfg.tile_w
+    model, view_proj, mvp = frame_matrices(state, cfg)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    g = state.geometry
+    tris = setup_triangles_reference(g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id,
+                                     mvp, model, W, H)
+    binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
+    li = state.lights
+    L = li.num_point
+    mats = fused.build_material_table(state.materials, cfg.gamma)
+    u = lighting_cuda.make_uniforms(state.camera.eye, li, cfg, inv_vp, W, H)
+    split = cfg.deferred_directional and cfg.shadows
+    out, tovf = fused.fused_tiles_reference(
+        binned.counts, binned.offs, binned.stream, fused.build_light_table(li), mats, u,
+        nty=-(-H // TH), ntx=-(-W // TW), tile_h=TH, tile_w=TW, n_lights=L,
+        ik_slots=fused.live_light_slots(cfg, L), gamma=cfg.gamma,
+        bump=(cfg.bump_strength, cfg.bump_frequency) if cfg.normal_mapping else None,
+        hdr_out=cfg.bloom or split, aux=split,
+    )
+    overflow = binned.overflow + tovf.sum()
+    color = out[:3]
+    if split:
+        sd, lvp, s_ovf = shadow_plain(state, cfg)
+        vis, v_ovf = fused.split_visibility(out, view_proj, sd, lvp, cfg, u, inv_vp)
+        overflow = overflow + s_ovf + v_ovf
+        color = fused.directional_resolve_reference(out, vis, mats, u)
+    return fused.finish_frame(color, cfg, hdr=cfg.bloom or split), overflow, out
 
 
 def drive_path(tp, state, cfg, kernels, sweep_steps: int = 64):
@@ -277,18 +393,23 @@ def main() -> int:
     import numpy as np
 
     import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch import xmath
     from d3d12_deferred_renderer_tpu_torch.ops import (
-        fused, lighting, lighting_cuda, post, raster_tiles, setup_cuda,
+        bump, fused, lighting, lighting_cuda, post, raster_tiles, setup_cuda, shadows,
     )
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.transform import (
-        TRI_MESH_ID, TRI_VALID, frame_matrices, setup_frame_triangles, setup_triangles_reference,
+        TRI_MESH_ID, TRI_VALID, frame_matrices, setup_depth_reference, setup_frame_triangles,
+        setup_triangles_reference,
     )
     from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
 
+    t_start = time.perf_counter()
     check("jax" not in sys.modules, "the port imported jax")
     wrappers = (setup_cuda.setup_triangles, fused.fused_tiles, raster_tiles.raster_tiles,
-                lighting_cuda.shade_tiles)
+                lighting_cuda.shade_tiles, setup_cuda.setup_depth_triangles, raster_tiles.raster_depth,
+                bump.bump_tiles, fused.directional_resolve)
+    no_launch = {k.__name__: 0 for k in wrappers}
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -504,6 +625,155 @@ def main() -> int:
         emit(line)
     del gb, sargs, hdr, phdr, img
 
+    # ---- 6. K4: the depth-only setup in the light's view ----
+    cfg4 = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True, **CONFIG4_FLAGS)
+    S = cfg4.shadow_map_size
+    lvp = shadows.light_view_proj(state.lights.direction)
+    model, _, _ = frame_matrices(state, cfg4)
+    k4_args = (g.fv_pos_cols, g.tri_mesh_id, xmath.matmul4_fma(model, lvp), S, S)
+    got = setup_cuda.setup_depth_triangles(*k4_args)
+    ref = setup_depth_reference(*k4_args)
+    torch.cuda.synchronize()
+    check(torch.equal(got.packed, ref.packed) and torch.equal(got.aabb, ref.aabb),
+          "K4 records or boxes differ from the plain version")
+    check(not bool(got.packed[:, 12:27].any()), "K4 attribute fields not zero")
+    k4_ms = cuda_ms(lambda: setup_cuda.setup_depth_triangles(*k4_args), 200)
+    k4_plain_ms = cuda_ms(lambda: setup_depth_reference(*k4_args), 20)
+    k4_bytes = T * (36 + 4) + M * 64 + 2 * T * (32 * 4 + 16)
+    emit({"phase": "k4", "ok": True, "records": int(got.packed.shape[0]), "valid": int(got.valid.sum()),
+          "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": k4_plain_ms,
+          **bound(k4_bytes, T * SETUP_DEPTH_OPS_PER_TRIANGLE)})
+    kernels["setup_depth"] = dict(
+        name="setup_depth_triangles", route="cuda",
+        source="d3d12_deferred_renderer_tpu_torch/csrc/setup.cu",
+        replaces="d3d12_deferred_renderer_tpu/ops/setup_pallas.py:281",
+        max_abs_err=0.0, ms=k4_ms, plain_ms=k4_plain_ms,
+        **bound(k4_bytes, T * SETUP_DEPTH_OPS_PER_TRIANGLE), library_ms=None,
+    )
+
+    # ---- 7. K3: the 1024^2 shadow map on 16 x 128 tiles; the display grid ----
+    scfg = shadows.shadow_bin_config(cfg4, T)
+    sb = bin_triangles(got.packed, got.aabb, got.valid, scfg)
+    skw = dict(nty=S // scfg.tile_h, ntx=S // scfg.tile_w, tile_h=scfg.tile_h, tile_w=scfg.tile_w)
+    sargs = (sb.counts, sb.offs, sb.stream)
+    sdepth = raster_tiles.raster_depth(*sargs, **skw)
+    psdepth = raster_tiles.raster_depth_reference(*sargs, **skw)
+    tris, _ = setup_frame_triangles(state, staged_cfg)
+    db = bin_triangles(tris.packed, tris.aabb, tris.valid, staged_cfg)
+    dkw = dict(nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)
+    ddepth = raster_tiles.raster_depth(db.counts, db.offs, db.stream, **dkw)
+    dplanes = raster_tiles.raster_tiles(db.counts, db.offs, db.stream, **dkw)
+    torch.cuda.synchronize()
+    check(torch.equal(sdepth, psdepth), "K3 shadow map not bit-equal to its plain version")
+    check(torch.equal(ddepth, dplanes[raster_tiles.PLANE_DEPTH]), "K3 depth differs from K6's depth plane")
+    check(int(sb.overflow) == 0, f"shadow binning overflow {int(sb.overflow)}")
+    shadow_cov = float((sdepth < 1.0).double().mean())
+    check(shadow_cov > 0.05, f"shadow map nearly empty ({shadow_cov})")
+    k3_ms = cuda_ms(lambda: raster_tiles.raster_depth(*sargs, **skw), 100)
+    k3_plain_ms = cuda_ms(lambda: raster_tiles.raster_depth_reference(*sargs, **skw), 2)
+    spairs = int(sb.counts.sum())
+    k3_bytes = spairs * 128 + 4 * (2 * sb.counts.numel() + 1) + 4 * sdepth.numel()
+    k3_ops = spairs * scfg.tile_h * scfg.tile_w * RASTER_OPS_PER_RECORD_PIXEL
+    emit({"phase": "k3", "ok": True, "size": f"{S}x{S}", "tile": f"{scfg.tile_h}x{scfg.tile_w}",
+          "binned_pairs": spairs, "max_tris_in_a_tile": int(sb.counts.max()),
+          "tris_per_tile_cap": scfg.max_tris_per_tile, "covered_frac": shadow_cov,
+          "display_grid_bit_equal_to_k6": True, "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain_ms,
+          **bound(k3_bytes, k3_ops)})
+    kernels["raster_depth"] = dict(
+        name="raster_depth", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/raster.cu",
+        replaces="d3d12_deferred_renderer_tpu/ops/raster_pallas.py:799",
+        max_abs_err=0.0, ms=k3_ms, plain_ms=k3_plain_ms, **bound(k3_bytes, k3_ops), library_ms=None,
+    )
+    del sdepth, psdepth, ddepth
+
+    # ---- 8. K8: the bump on the flagship frame's fragments ----
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    bplanes = bump.bump_planes(raster_tiles.fragments_from_planes(dplanes, H, W), nty * TH, ntx * TW)
+    bargs = (bplanes, bump.bump_uniforms(inv_vp, W, H))
+    bkw = dict(nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, strength=cfg4.bump_strength, freq=cfg4.bump_frequency)
+    bn = bump.bump_tiles(*bargs, **bkw)
+    pbn = bump.bump_tiles_reference(*bargs, **bkw)
+    torch.cuda.synchronize()
+    k8_err = float((bn - pbn).abs().max())
+    check(k8_err <= 1e-6, f"K8 normals off by {k8_err} (bound 1e-6)")
+    moved = float((bn != bplanes[1:4]).any(0).double().mean())
+    check(moved > 0.1, f"K8 perturbed only {moved} of the pixels")
+    k8_ms = cuda_ms(lambda: bump.bump_tiles(*bargs, **bkw), 100)
+    k8_plain_ms = cuda_ms(lambda: bump.bump_tiles_reference(*bargs, **bkw), 5)
+    # The bytes the function needs: the mesh id and the normal at every
+    # pixel (a background or out-of-frame pixel keeps its normal), depth, u
+    # and v at covered in-frame pixels only (padding has mesh id -1), the
+    # normals out and the uniforms.
+    plane8 = bplanes[bump.B_MID].numel()
+    cov8 = int((bplanes[bump.B_MID] >= 0).sum())
+    k8_bytes = 4 * (4 * plane8 + 3 * cov8 + bn.numel() + 32)
+    k8_bound = bound(k8_bytes, cov8 * BUMP_OPS_PER_PIXEL)
+    emit({"phase": "k8", "ok": True, "max_abs_err": k8_err,
+          "bit_equal_frac": float((bn == pbn).double().mean()), "perturbed_frac": moved,
+          "covered_pixels": cov8, "ms": k8_ms, "plain_ms": k8_plain_ms, **k8_bound})
+    kernels["bump"] = dict(
+        name="bump_tiles", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/bump.cu",
+        replaces="d3d12_deferred_renderer_tpu/ops/bump.py:196",
+        max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain_ms, **k8_bound, library_ms=None,
+    )
+    del bplanes, bargs, bn, pbn
+
+    # ---- 9. K2's config-4 variant: bump + linear HDR + the split's planes ----
+    args, kw, binned = k2_inputs(tp, state, cfg4)
+    kw.update(bump=(cfg4.bump_strength, cfg4.bump_frequency), hdr_out=True, aux=True)
+    out4, tovf4 = fused.fused_tiles(*args, **kw)
+    pout4, ptovf4 = fused.fused_tiles_reference(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(tovf4, ptovf4), "K2 variant tile overflow differs")
+    check(torch.equal(out4[3], dplanes[raster_tiles.PLANE_DEPTH]), "K2 variant depth differs from K6's")
+    check(torch.equal(out4[7], dplanes[raster_tiles.PLANE_MID]), "K2 variant mesh ids differ from K6's")
+    # The bumped, quantized and decoded normals (planes 4-6) feed the lit
+    # mask and K5: bit-equal to the plain version's, as K8's normals are.
+    aux_err = float((out4[3:8] - pout4[3:8]).abs().max())
+    check(aux_err == 0.0, f"K2 variant aux planes (depth, normal, mesh id) off the plain version's by {aux_err}"
+                          f" (elements off per plane: {(out4[3:8] != pout4[3:8]).sum((1, 2)).tolist()})")
+    st = frame_stats(*(u8(post.gamma_encode(post.reinhard(o[:3, :H, :W]), cfg4.gamma)).permute(1, 2, 0)
+                       for o in (out4, pout4)))
+    check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"K2 variant frame off: {st}")
+    k2v_ms = cuda_ms(lambda: fused.fused_tiles(*args, **kw), 50)
+    emit({"phase": "k2v", "ok": True, "variant": "bump+hdr_out+aux", "max_abs_err": float((out4 - pout4).abs().max()),
+          "aux_max_abs_err": aux_err, "aux_depth_mid_bit_equal_to_k6": True, "overflow": int(tovf4.sum()),
+          "ms": k2v_ms, **st})
+    del dplanes
+
+    # ---- 10. K5: the directional resolve on the k2v planes (the kernel's
+    # aux planes, bit-equal to the plain version's as checked above) ----
+    u4 = args[5]
+    sd4, lvp4, _ = shadow_plain(state, cfg4)
+    vis4, _ = fused.split_visibility(out4, view_proj, sd4, lvp4, cfg4, u4, inv_vp)
+    rargs = (out4, vis4, args[4], u4)
+    rhdr = fused.directional_resolve(*rargs)
+    prhdr = fused.directional_resolve_reference(*rargs)
+    torch.cuda.synchronize()
+    excess = float(((rhdr - prhdr).abs() - (2e-5 + 2e-4 * prhdr.abs())).max())
+    check(excess <= 0.0, f"K5 HDR outside rtol 2e-4, atol 2e-5: excess {excess}")
+    st = frame_stats(*(u8(post.gamma_encode(post.reinhard(h[:, :H, :W]), cfg4.gamma)).permute(1, 2, 0)
+                       for h in (rhdr, prhdr)))
+    check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"K5 frame off: {st}")
+    k5_err = float((rhdr - prhdr).abs().max())
+    k5_ms = cuda_ms(lambda: fused.directional_resolve(*rargs), 100)
+    k5_plain_ms = cuda_ms(lambda: fused.directional_resolve_reference(*rargs), 5)
+    # The bytes the function needs: depth and the HDR at every pixel, the
+    # normal, mesh id and visibility at covered pixels, the HDR out.
+    cov5 = int((out4[3] < 1.0).sum())
+    k5_bytes = 4 * (4 * out4[3].numel() + 5 * cov5 + 3 * out4[3].numel() + 64 + 32)
+    emit({"phase": "k5", "ok": True, "max_abs_err": k5_err, "bit_equal_frac": float((rhdr == prhdr).double().mean()),
+          "covered_pixels": cov5, "ms": k5_ms, "plain_ms": k5_plain_ms,
+          **bound(k5_bytes, cov5 * RESOLVE_OPS_PER_PIXEL), **st})
+    kernels["resolve"] = dict(
+        name="directional_resolve", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/resolve.cu",
+        replaces="d3d12_deferred_renderer_tpu/ops/fused.py:445",
+        max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms,
+        **bound(k5_bytes, cov5 * RESOLVE_OPS_PER_PIXEL), library_ms=None,
+    )
+    del out4, pout4, rhdr, prhdr, rargs, args, vis4, sd4
+    emit({"phase": "kernels_done", "seconds": time.perf_counter() - t_start})
+
     total_launches = {k.__name__: 0 for k in wrappers}
 
     # ---- 6. the main path: the fused flagship frame ----
@@ -522,21 +792,8 @@ def main() -> int:
     check(covered > 0.2, f"main-path frame nearly blank ({covered})")
     # The last frame against the plain chain (plain setup, binning, plain
     # tile renderer) on the same state.
-    model, view_proj, mvp = frame_matrices(state, cfg)
-    g = state.geometry
-    tris = setup_triangles_reference(g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id,
-                                     mvp, model, cfg.width, cfg.height)
-    binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
     L = state.lights.num_point
-    pcolor, _ = fused.fused_tiles_reference(
-        binned.counts, binned.offs, binned.stream, fused.build_light_table(state.lights),
-        fused.build_material_table(state.materials, cfg.gamma),
-        fused.build_uniforms(state, cfg, view_proj),
-        nty=-(-cfg.height // cfg.tile_h), ntx=-(-cfg.width // cfg.tile_w),
-        tile_h=cfg.tile_h, tile_w=cfg.tile_w, n_lights=L,
-        ik_slots=fused.live_light_slots(cfg, L), gamma=cfg.gamma,
-    )
-    plain_frame = u8(pcolor[:, : cfg.height, : cfg.width]).permute(1, 2, 0)
+    plain_frame, _, _ = fused_plain_chain(state, cfg)
     st = frame_stats(frame, plain_frame)
     check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"main-path frame vs plain chain: {st}")
     best = min(p[0] for p in passes)
@@ -558,7 +815,7 @@ def main() -> int:
             tp, sstate0, scfg, wrappers)
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
         pbr = scfg.shading == "pbr"
-        expect = {"setup_triangles": frames, "fused_tiles": 0, "raster_tiles": frames,
+        expect = {**no_launch, "setup_triangles": frames, "raster_tiles": frames,
                   "shade_tiles": frames if pbr else 0}
         check(launches == expect, f"{label}: launch counts {launches}, expected {expect}")
         for k, n in launches.items():
@@ -607,10 +864,72 @@ def main() -> int:
         })
         emit(line)
 
+    # ---- 13. config 4: the fused frame with the split, and the staged frame ----
+    for label, fused_path in (("config4_fused_split", True), ("config4_staged", False)):
+        c4 = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=fused_path, **CONFIG4_FLAGS)
+        torch.cuda.reset_peak_memory_stats()
+        sstate, sframe, frames, launches, sweep_states, sweep_ovf, passes = drive_path(
+            tp, state0, c4, wrappers)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        common = {"setup_triangles": frames, "setup_depth_triangles": frames, "raster_depth": frames}
+        if fused_path:
+            expect = {**no_launch, **common, "fused_tiles": frames, "directional_resolve": frames}
+        else:
+            expect = {**no_launch, **common, "raster_tiles": frames, "bump_tiles": frames,
+                      "shade_tiles": frames}
+        check(launches == expect, f"{label}: launch counts {launches}, expected {expect}")
+        for k, n in launches.items():
+            total_launches[k] += n
+        check(max(sweep_ovf) == 0, f"{label}: overflow {max(sweep_ovf)} on the orbit sweep")
+        line = {"phase": "config4", "ok": True, "config": label,
+                "resolution": f"{c4.width}x{c4.height}", "shadow_map": c4.shadow_map_size,
+                "triangles": T, "lights": sstate.lights.num_point, "frames": frames,
+                "launches": {k: n for k, n in launches.items() if n},
+                "launches_per_frame": {k: n / frames for k, n in launches.items() if n},
+                "sweep_steps": len(sweep_ovf), "sweep_max_overflow": max(sweep_ovf)}
+        if not fused_path:
+            sampled = list(range(3, len(sweep_states), 4))
+            plain_ovf = [int(staged_plain_chain(sweep_states[i], c4, shade=False)[1]) for i in sampled]
+            kernel_ovf = [sweep_ovf[i] for i in sampled]
+            check(plain_ovf == kernel_ovf, f"{label}: overflow {kernel_ovf} != plain chain's {plain_ovf}")
+            line["sampled_steps"], line["sampled_overflow"] = sampled, kernel_ovf
+        covered = float((sframe.amax(-1) > 0).double().mean())
+        check(covered > 0.2, f"{label}: frame nearly blank ({covered})")
+        pframe = (fused_plain_chain(sstate, c4) if fused_path else staged_plain_chain(sstate, c4))[0]
+        st = frame_stats(sframe, pframe)
+        check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"{label}: frame vs plain chain: {st}")
+        best = min(p[0] for p in passes)
+        line.update({
+            "covered_frac": covered, "vs_plain_chain": st, "ms_per_frame": best, "fps": 1e3 / best,
+            "passes_device_ms": [p[0] for p in passes], "passes_host_ms": [p[1] for p in passes],
+            "peak_mem_mib": peak_mib,
+        })
+        emit(line)
+
+    # ---- 14. bench.py's parity blocks: fused against staged at 256x64 ----
+    pgeo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4))
+    parity = {}
+    for pname, extras in (("pbr", {}), ("config4", {k: CONFIG4_FLAGS[k] for k in (
+            "shadows", "normal_mapping", "bloom", "deferred_directional", "inkernel_light_cull")})):
+        pcfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=64, fused=True, **extras)
+        pstate = tp.make_scene(
+            pgeo, pcfg, lights=tp.random_point_lights(16, cfg=pcfg, radius=1.2, device=dev),
+            placement="grid", materials=tp.Materials.varied(pgeo.num_meshes, device=dev), device=dev)
+        f_fused, o_fused = tp.render_stats(pstate, pcfg)
+        f_staged, o_staged = tp.render_stats(pstate, dataclasses.replace(pcfg, fused=False))
+        st = frame_stats(f_fused, f_staged)
+        parity[pname] = {k: st[k] for k in ("mean_abs_u8", "frac_gt_4lsb", "max_u8", "frac_diff")}
+        parity[pname]["overflow"] = [int(o_fused["overflow"]), int(o_staged["overflow"])]
+        check(st["mean_abs_u8"] <= 1.0 and st["frac_gt_4lsb"] <= 0.02, f"parity {pname}: {st}")
+    emit({"phase": "parity", "ok": True, "size": "256x64", **parity})
+
     for key, name in (("setup", "setup_triangles"), ("fused", "fused_tiles"),
-                      ("raster", "raster_tiles"), ("shade", "shade_tiles")):
+                      ("raster", "raster_tiles"), ("shade", "shade_tiles"),
+                      ("setup_depth", "setup_depth_triangles"), ("raster_depth", "raster_depth"),
+                      ("bump", "bump_tiles"), ("resolve", "directional_resolve")):
         kernels[key]["launches"] = total_launches[name]
         check(total_launches[name] > 0, f"{name} never launched on the main paths")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -619,7 +938,8 @@ def main() -> int:
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kernels[n][k] for k in keys} for n in ("setup", "fused", "raster", "shade")]})
+    emit({"kernels": [{k: kernels[n][k] for k in keys} for n in (
+        "setup", "fused", "raster", "shade", "setup_depth", "raster_depth", "bump", "resolve")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

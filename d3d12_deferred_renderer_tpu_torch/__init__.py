@@ -6,8 +6,10 @@ PyTorch, with the TPU kernels rewritten by hand in CUDA C++ for Hopper
 frame (scene + animation -> triangle setup -> binning -> fused tile renderer
 -> uint8) and the staged frame (triangle setup -> binning -> tile raster ->
 G-buffer -> Lambert, or light cull + G-buffer lighting -> tonemap -> uint8),
-each through hand-written kernels; frame.check_ported says which configs
-raise NotImplementedError.  Scenes live on the CUDA device unless the caller
+each with the config-4 stack (shadow map, procedural bump, bloom, FXAA;
+the fused frame's shadows through the deferred-directional split), through
+hand-written kernels; frame.check_ported says which configs raise
+NotImplementedError.  Scenes live on the CUDA device unless the caller
 passes device="cpu"; a CUDA kernel runs for tensors on a CUDA device, its
 plain PyTorch version for tensors on the CPU.
 """

@@ -6,8 +6,9 @@ both packages (tests/test_torch_frame.py pins ``dataclasses.asdict`` equal).
 The knobs that only shape the TPU program (``use_pallas``, ``setup_pallas``,
 ``stream_dma_db``, ``tile_*``, ...) stay as fields for that comparison; the
 port reads the tile size and every capacity budget, and ignores the rest.
-The PyTorch frame covers the fused PBR path with in-kernel light culling
-(frame.py says which configs raise NotImplementedError).
+The PyTorch frame covers the fused PBR path with in-kernel light culling,
+the staged path and the config-4 stack (frame.py says which configs raise
+NotImplementedError).
 """
 from __future__ import annotations
 

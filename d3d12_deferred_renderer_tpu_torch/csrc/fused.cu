@@ -3,10 +3,15 @@
 //
 // Replaces the TPU mono-kernel d3d12_deferred_renderer_tpu/ops/fused.py:
 // _fused_kernel (helpers raster_pallas._chunk_raster, fused._shade_row,
-// fused._world_from_depth) on the flagship branch: PBR, in-kernel light
-// culling, no shadows, bump, bloom or split.  Its plain PyTorch version is
-// ops/fused.py:fused_tiles_reference, and the arithmetic below follows it
-// operation for operation, in the same association order.
+// fused._world_from_depth, bump.bump_planar) with in-kernel light culling:
+// the flagship branch and the config-4 variants, as template switches:
+// kBump (uv joins the raster and bump.cuh perturbs the raw normals before
+// the G-buffer quantization), kAux (the deferred-directional split: no
+// directional term, and the depth, decoded normal and mesh-id planes out),
+// and at run time hdr_out (linear HDR out: no tonemap or gamma; implied by
+// kAux).  Its plain PyTorch version is ops/fused.py:fused_tiles_reference,
+// and the arithmetic below follows it operation for operation, in the same
+// association order.
 //
 // One block of 256 threads per tile (up to 1024 pixels, 8 x 128 in the
 // flagship config); thread tid owns pixels tid + 256 * j, j < 4, so a warp
@@ -31,6 +36,7 @@
 // (about 100 flops each, with a divide-heavy tail); the stream segment, the
 // light rows and the output are a few MB per 1080p frame.
 
+#include "bump.cuh"
 #include "raster.cuh"
 #include "shade.cuh"
 
@@ -73,14 +79,16 @@ __device__ void block_minmax(float (&vals)[2 * NP], float (*s_red)[12], float* o
   __syncthreads();
 }
 
+template <bool kBump, bool kAux>
 __global__ void __launch_bounds__(kThreads)
 fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                   const float* __restrict__ stream, const float* __restrict__ lights,
-                  int n_lights, const float* __restrict__ mats,
+                  int n_lights, const float* __restrict__ mats, int n_mats,
                   const float* __restrict__ uniforms, int ntx, int tile_h, int tile_w,
-                  int ik_slots, float inv_gamma, float* __restrict__ color, int Hp, int Wp,
-                  int* __restrict__ tile_overflow) {
+                  int ik_slots, float inv_gamma, float strength, float w2pf, bool hdr_out,
+                  float* __restrict__ color, int Hp, int Wp, int* __restrict__ tile_overflow) {
   __shared__ float4 s_rec4[kChunk * kStride / 4];
+  __shared__ float s_bump[kBump ? bump::kPlanes * kThreads * kPix : 1];
   __shared__ float s_u[32];
   __shared__ float s_red[kWarps][12];
   __shared__ float s_bounds[12];
@@ -101,7 +109,7 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
 
   // ---- 1-2. raster the tile's records in submission order ----
   float depth[kPix], nrm[3][kPix], uv[2][kPix], mid[kPix];
-  raster::raster_tile<false>(stream, offs[tile], counts[tile], s_rec4, px, py, inb, depth, nrm,
+  raster::raster_tile<kBump>(stream, offs[tile], counts[tile], s_rec4, px, py, inb, depth, nrm,
                              uv, mid);
 
   // ---- 3. exact light cull against two eye-distance slabs ----
@@ -114,6 +122,27 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
     shade::world_from_depth(s_u, px[j], py[j], depth[j], wpos[j]);
     const float dx = wpos[j][0] - ex, dy = wpos[j][1] - ey, dz = wpos[j][2] - ez;
     d2[j] = (dx * dx + dy * dy) + dz * dz;
+  }
+  if constexpr (kBump) {
+    // Bump the raw normals inside the tile; pixels outside the frame count
+    // as background.  (The cull reads only depth and mesh id.)
+    const int P = tile_h * tile_w;
+#pragma unroll
+    for (int j = 0; j < kPix; ++j)
+      if (inb[j]) {
+        const bool inside = px[j] < s_u[shade::U_W] && py[j] < s_u[shade::U_H];
+        bump::stage_pixel(s_bump, P, tid + j * kThreads, wpos[j], uv[0][j], uv[1][j],
+                          inside ? mid[j] : -1.0f);
+      }
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < kPix; ++j)
+      if (inb[j]) {
+        const float n0[3] = {nrm[0][j], nrm[1][j], nrm[2][j]};
+        float nb[3];
+        bump::bump_pixel(s_bump, tile_h, tile_w, tid + j * kThreads, n0, strength, w2pf, nb);
+        nrm[0][j] = nb[0], nrm[1][j] = nb[1], nrm[2][j] = nb[2];
+      }
   }
   float dv[2] = {kBig, -kBig};
 #pragma unroll
@@ -188,15 +217,6 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
     if (!inb[j]) continue;
     const int i = tid + j * kThreads;
     const size_t o = (size_t)(ty * tile_h + i / tile_w) * Wp + (size_t)(tx * tile_w + i % tile_w);
-    if (!(depth[j] < 1.0f)) {
-      color[o] = color[plane + o] = color[2 * plane + o] = 0.0f;
-      continue;
-    }
-    float alb[3] = {0.0f, 0.0f, 0.0f}, metal = 0.0f, rough = 0.0f;
-    if (cov[j]) {
-      const float* mr = mats + 8 * (size_t)mid[j];
-      alb[0] = mr[0], alb[1] = mr[1], alb[2] = mr[2], metal = mr[3], rough = mr[4];
-    }
     const float nlen = sqrtf((nrm[0][j] * nrm[0][j] + nrm[1][j] * nrm[1][j]) + nrm[2][j] * nrm[2][j]);
     const float inv_nlen = 1.0f / (nlen == 0.0f ? 1.0f : nlen);
     float nd[3];
@@ -206,37 +226,71 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
     const float dlen = sqrtf((nd[0] * nd[0] + nd[1] * nd[1]) + nd[2] * nd[2]);
     const float inv_dlen = 1.0f / (dlen == 0.0f ? 1.0f : dlen);
     const float N[3] = {nd[0] * inv_dlen, nd[1] * inv_dlen, nd[2] * inv_dlen};
+    if constexpr (kAux) {
+      color[3 * plane + o] = depth[j];
+      color[4 * plane + o] = N[0];
+      color[5 * plane + o] = N[1];
+      color[6 * plane + o] = N[2];
+      color[7 * plane + o] = mid[j];
+    }
+    if (!(depth[j] < 1.0f)) {
+      color[o] = color[plane + o] = color[2 * plane + o] = 0.0f;
+      continue;
+    }
+    float alb[3] = {0.0f, 0.0f, 0.0f}, metal = 0.0f, rough = 0.0f;
+    if (cov[j]) {
+      const float* mr = mats + 8 * (size_t)min((int)mid[j], n_mats - 1);
+      alb[0] = mr[0], alb[1] = mr[1], alb[2] = mr[2], metal = mr[3], rough = mr[4];
+    }
 
     float hdr[3];
-    shade::shade_pixel(s_u, wpos[j], N, alb, metal, rough, 1.0f, s_lrow, n_live, hdr);
+    shade::shade_pixel<!kAux>(s_u, wpos[j], N, alb, metal, rough, 1.0f, s_lrow, n_live, hdr);
     const bool reinhard = s_u[U_TONEMAP] > 0.5f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       float v = hdr[c];
-      if (reinhard) v = v / (1.0f + v);
-      color[c * plane + o] = powf(maxp(v, 0.0f), inv_gamma);
+      if (!hdr_out) {
+        if (reinhard) v = v / (1.0f + v);
+        v = powf(maxp(v, 0.0f), inv_gamma);
+      }
+      color[c * plane + o] = v;
     }
   }
+}
+
+template <bool kBump, bool kAux>
+int launch(const int* counts, const int* offs, const float* stream, const float* lights,
+           int n_lights, const float* mats, int n_mats, const float* uniforms, int nty, int ntx,
+           int tile_h, int tile_w, int ik_slots, float inv_gamma, float strength, float w2pf,
+           bool hdr_out, float* color, int* tile_overflow, cudaStream_t cs) {
+  const size_t dyn = (size_t)ik_slots * (8 * sizeof(float) + sizeof(int));
+  if (dyn > 8 * 1024) {  // static + dynamic past 48 KB needs the opt-in
+    const cudaError_t e = cudaFuncSetAttribute(fused_tile_kernel<kBump, kAux>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_tile_kernel<kBump, kAux><<<nty * ntx, kThreads, dyn, cs>>>(
+      counts, offs, stream, lights, n_lights, mats, n_mats, uniforms, ntx, tile_h, tile_w, ik_slots,
+      inv_gamma, strength, w2pf, hdr_out, color, nty * tile_h, ntx * tile_w, tile_overflow);
+  return 0;
 }
 
 }  // namespace
 
 extern "C" int fused_tiles_launch(const int* counts, const int* offs, const float* stream,
-                                  const float* lights, int n_lights,
-                                  const float* mats, const float* uniforms, int nty, int ntx,
-                                  int tile_h, int tile_w, int ik_slots, float inv_gamma,
-                                  float* color, int* tile_overflow, cudaStream_t cs) {
-  const int n_tiles = nty * ntx;
-  if (n_tiles > 0) {
-    const size_t dyn = (size_t)ik_slots * (8 * sizeof(float) + sizeof(int));
-    if (dyn > 32 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          fused_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-      if (e != cudaSuccess) return (int)e;
-    }
-    fused_tile_kernel<<<n_tiles, kThreads, dyn, cs>>>(
-        counts, offs, stream, lights, n_lights, mats, uniforms, ntx, tile_h, tile_w, ik_slots,
-        inv_gamma, color, nty * tile_h, ntx * tile_w, tile_overflow);
+                                  const float* lights, int n_lights, const float* mats, int n_mats,
+                                  const float* uniforms, int nty, int ntx, int tile_h, int tile_w,
+                                  int ik_slots, float inv_gamma, int bump, float strength,
+                                  float w2pf, int hdr_out, int aux, float* color,
+                                  int* tile_overflow, cudaStream_t cs) {
+  if (nty * ntx > 0) {
+    decltype(&launch<false, false>) fn =
+        bump ? (aux ? launch<true, true> : launch<true, false>)
+             : (aux ? launch<false, true> : launch<false, false>);
+    const int e = fn(counts, offs, stream, lights, n_lights, mats, n_mats, uniforms, nty, ntx,
+                     tile_h, tile_w, ik_slots, inv_gamma, strength, w2pf, hdr_out != 0 || aux != 0,
+                     color, tile_overflow, cs);
+    if (e != 0) return e;
   }
   return (int)cudaGetLastError();
 }

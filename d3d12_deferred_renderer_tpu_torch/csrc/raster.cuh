@@ -1,12 +1,14 @@
 // The tile raster, shared by the fused tile renderer (fused.cu) and the tile
-// raster kernel (raster.cu), as raster_pallas._chunk_raster is shared by the
-// TPU kernels: both kernels rasterize with this one loop, so their depth and
-// mesh-id planes are bit-equal.  Its plain PyTorch version is
+// raster kernels (raster.cu: all planes, and depth only), as
+// raster_pallas._chunk_raster is shared by the TPU kernels: every kernel
+// rasterizes with this one loop, so their depth and mesh-id planes are
+// bit-equal.  Its plain PyTorch version is
 // ops/raster_tiles.py:raster_tile_pixels.
 //
-// One block of kThreads threads per tile of at most kThreads * kPix pixels;
-// thread tid owns pixels tid + kThreads * j, j < kPix, so a warp covers
-// neighbouring pixels of one row.  The tile's segment [start, start + n) of
+// One block of kThreads threads per tile of at most kThreads * NP pixels
+// (NP = kPix = 4 for the 8 x 128 screen tiles, 8 for the shadow map's
+// 16 x 128 tiles); thread tid owns pixels tid + kThreads * j, j < NP, so a
+// warp covers neighbouring pixels of one row.  The tile's segment [start, start + n) of
 // the record stream comes through shared memory in chunks of kChunk records;
 // records are taken in submission order with a strict z < depth test and z
 // in [0, 1] (a NaN z fails), which is the TPU kernel's chunk-min,
@@ -20,7 +22,7 @@
 namespace raster {
 
 constexpr int kThreads = 256;
-constexpr int kPix = 4;       // pixels per thread: tiles of at most 1024
+constexpr int kPix = 4;       // pixels per thread on screen tiles (at most 1024)
 constexpr int kStride = 32;   // TRI_STRIDE
 constexpr int kChunk = 64;    // records per shared-memory chunk
 
@@ -35,12 +37,13 @@ __device__ __forceinline__ float sum3(float b0, float b1, float b2, const float*
 
 // Pixel centers of this thread's pixels of tile (ty, tx), and which of them
 // lie inside the tile.
+template <int NP>
 __device__ __forceinline__ void tile_pixel_centers(int ty, int tx, int tile_h, int tile_w,
-                                                   float (&px)[kPix], float (&py)[kPix],
-                                                   bool (&inb)[kPix]) {
+                                                   float (&px)[NP], float (&py)[NP],
+                                                   bool (&inb)[NP]) {
   const int P = tile_h * tile_w;
 #pragma unroll
-  for (int j = 0; j < kPix; ++j) {
+  for (int j = 0; j < NP; ++j) {
     const int i = threadIdx.x + j * kThreads;
     inb[j] = i < P;
     py[j] = ((float)(ty * tile_h) + 0.5f) + (float)(i / tile_w);
@@ -49,18 +52,19 @@ __device__ __forceinline__ void tile_pixel_centers(int ty, int tx, int tile_h, i
 }
 
 // Rasterize records [start, start + n) of `stream` over this thread's
-// pixels.  Outputs: depth (cleared to 1), the perspective-correct normal and,
-// with kUV, uv (cleared to 0), and the winner's mesh id (-1 background).
+// pixels.  Outputs: depth (cleared to 1) and, with kAttrs, the
+// perspective-correct normal, with kUV uv (cleared to 0), and the winner's
+// mesh id (-1 background); without kAttrs (depth only) those stay untouched.
 // Every thread of the block must call it (it synchronises the block).
-template <bool kUV>
+template <bool kUV, int NP, bool kAttrs = true>
 __device__ __forceinline__ void raster_tile(const float* __restrict__ stream, int start, int n,
-                                            float4* s_rec4, const float (&px)[kPix],
-                                            const float (&py)[kPix], const bool (&inb)[kPix],
-                                            float (&depth)[kPix], float (&nrm)[3][kPix],
-                                            float (&uv)[2][kPix], float (&mid)[kPix]) {
+                                            float4* s_rec4, const float (&px)[NP],
+                                            const float (&py)[NP], const bool (&inb)[NP],
+                                            float (&depth)[NP], float (&nrm)[3][NP],
+                                            float (&uv)[2][NP], float (&mid)[NP]) {
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int j = 0; j < kPix; ++j) {
+  for (int j = 0; j < NP; ++j) {
     depth[j] = 1.0f;
     nrm[0][j] = nrm[1][j] = nrm[2][j] = 0.0f;
     uv[0][j] = uv[1][j] = 0.0f;
@@ -93,7 +97,7 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ stream, in
       }
       const float inv_area = 1.0f / r[TRI_AREA];
 #pragma unroll
-      for (int j = 0; j < kPix; ++j) {
+      for (int j = 0; j < NP; ++j) {
         if (!inb[j]) continue;
         float ev[3];
         bool cov = true;
@@ -107,6 +111,7 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ stream, in
         const float z = sum3(b0, b1, b2, r + TRI_Z0, 1);
         if (!(z >= 0.0f && z <= 1.0f && z < depth[j])) continue;
         depth[j] = z;
+        if constexpr (!kAttrs) continue;
         const float rw = sum3(b0, b1, b2, r + TRI_RW0, 1);
         const float inv_rw = 1.0f / (rw == 0.0f ? 1.0f : rw);
 #pragma unroll

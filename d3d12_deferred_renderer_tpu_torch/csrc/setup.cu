@@ -1,9 +1,14 @@
 // Triangle setup kernel: transform, near clip, viewport, cull, record packing.
 //
-// Replaces the TPU setup kernel d3d12_deferred_renderer_tpu/ops/
-// setup_pallas.py:_kernel_full (body _setup_body).  Its plain PyTorch version
-// is ops/transform.py:setup_triangles_reference, and the arithmetic below
-// follows it operation for operation, in the same association order.
+// Replaces the TPU setup kernels d3d12_deferred_renderer_tpu/ops/
+// setup_pallas.py:_kernel_full (the camera pass, kAttrs) and _kernel_depth
+// (the shadow map's depth-only light-view pass), body _setup_body.  Their
+// plain PyTorch versions are ops/transform.py:setup_triangles_reference and
+// setup_depth_reference, and the arithmetic below follows them operation for
+// operation, in the same association order.  The depth-only variant reads
+// no normal or uv, clips the 4 clip-space components only (each component
+// lerps on its own, so the clip values are the full variant's) and writes
+// record fields 12-26 as zero.
 //
 // One thread per input triangle.  The block stages every mesh's MVP (16
 // floats) and model 3x3 block (9 floats) in shared memory; a triangle reads
@@ -12,9 +17,10 @@
 // in submission order.
 //
 // Bound: launch and memory traffic.  At 23,906 triangles the kernel reads
-// about 2.4 MB (24 face-vertex floats + a mesh id per triangle) and writes
-// about 7 MB of records and boxes, a few microseconds at HBM rates; the math
-// is a few hundred flops per triangle.  Records go out as float4 stores.
+// about 2.4 MB (24 face-vertex floats + a mesh id per triangle; 0.9 MB
+// depth-only) and writes about 7 MB of records and boxes, a few microseconds
+// at HBM rates; the math is a few hundred flops per triangle.  Records go
+// out as float4 stores.
 
 #include "common.cuh"
 
@@ -35,6 +41,7 @@ __device__ __forceinline__ float lerp_t(float za, float zb) {
 }
 
 // One slot: viewport, cull, canonical winding, packing (transform._setup_cols).
+template <bool kAttrs>
 __device__ void emit(const Slot& s, float mesh_id, float W, float H, int cull,
                      float* __restrict__ rec,
                      float* __restrict__ box) {
@@ -71,8 +78,12 @@ __device__ void emit(const Slot& s, float mesh_id, float W, float H, int cull,
     r[2 * k + 1] = sy[v];
     r[6 + k] = sz[v];
     r[9 + k] = rw[v];
-    for (int j = 0; j < 3; ++j) r[12 + 3 * k + j] = s.n[v][j] * rw[v];
-    for (int j = 0; j < 2; ++j) r[21 + 2 * k + j] = s.uv[v][j] * rw[v];
+    if constexpr (kAttrs) {
+      for (int j = 0; j < 3; ++j) r[12 + 3 * k + j] = s.n[v][j] * rw[v];
+      for (int j = 0; j < 2; ++j) r[21 + 2 * k + j] = s.uv[v][j] * rw[v];
+    } else {
+      for (int j = 12; j < 27; ++j) r[j] = 0.0f;
+    }
   }
   r[27] = mesh_id;
   r[28] = valid ? 1.0f : 0.0f;
@@ -87,6 +98,7 @@ __device__ void emit(const Slot& s, float mesh_id, float W, float H, int cull,
       clampp(maxy, 0.0f, H));
 }
 
+template <bool kAttrs>
 __global__ void __launch_bounds__(kThreads)
 setup_kernel(const float* __restrict__ pos, const float* __restrict__ nrm,
              const float* __restrict__ uv, const int* __restrict__ mesh_id,
@@ -97,9 +109,11 @@ setup_kernel(const float* __restrict__ pos, const float* __restrict__ nrm,
   float* s_mvp = smem;           // [M][16]
   float* s_mdl = smem + 16 * M;  // [M][9]: model[m][i][j], i, j < 3
   for (int i = threadIdx.x; i < 16 * M; i += blockDim.x) s_mvp[i] = mvp[i];
-  for (int i = threadIdx.x; i < 9 * M; i += blockDim.x) {
-    const int m = i / 9, k = i % 9;
-    s_mdl[i] = model[16 * m + 4 * (k / 3) + (k % 3)];
+  if constexpr (kAttrs) {
+    for (int i = threadIdx.x; i < 9 * M; i += blockDim.x) {
+      const int m = i / 9, k = i % 9;
+      s_mdl[i] = model[16 * m + 4 * (k / 3) + (k % 3)];
+    }
   }
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -118,12 +132,14 @@ setup_kernel(const float* __restrict__ pos, const float* __restrict__ nrm,
     for (int k = 0; k < 4; ++k)
       c[v][k] = ((p0 * (S[k] * msk) + p1 * (S[4 + k] * msk)) + p2 * (S[8 + k] * msk)) +
                 S[12 + k] * msk;
-    const float q0 = nrm[(3 * v + 0) * T + t], q1 = nrm[(3 * v + 1) * T + t],
-                q2 = nrm[(3 * v + 2) * T + t];
-    for (int j = 0; j < 3; ++j)
-      n[v][j] = (q0 * (N[j] * msk) + q1 * (N[3 + j] * msk)) + q2 * (N[6 + j] * msk);
-    u[v][0] = uv[(2 * v + 0) * T + t];
-    u[v][1] = uv[(2 * v + 1) * T + t];
+    if constexpr (kAttrs) {
+      const float q0 = nrm[(3 * v + 0) * T + t], q1 = nrm[(3 * v + 1) * T + t],
+                  q2 = nrm[(3 * v + 2) * T + t];
+      for (int j = 0; j < 3; ++j)
+        n[v][j] = (q0 * (N[j] * msk) + q1 * (N[3 + j] * msk)) + q2 * (N[6 + j] * msk);
+      u[v][0] = uv[(2 * v + 0) * T + t];
+      u[v][1] = uv[(2 * v + 1) * T + t];
+    }
   }
 
   // Near-plane clip (transform._clip_near_plane_stack): rotate so that the
@@ -134,19 +150,22 @@ setup_kernel(const float* __restrict__ pos, const float* __restrict__ nrm,
   const int first_in = in0 ? 0 : (in1 ? 1 : 2);
   const int first_out = !in0 ? 0 : (!in1 ? 1 : 2);
   const int r = n_in == 1 ? first_in : (n_in == 2 ? (first_out + 1) % 3 : 0);
+  constexpr int kComps = kAttrs ? 9 : 4;
   float A[9], Bv[9], Cv[9];  // rotated vertices: 4 clip + 3 normal + 2 uv
   float* rows[3] = {A, Bv, Cv};
   for (int v = 0; v < 3; ++v) {
     const int src = (v + r) % 3;
     float* d = rows[v];
     for (int k = 0; k < 4; ++k) d[k] = c[src][k];
-    for (int j = 0; j < 3; ++j) d[4 + j] = n[src][j];
-    for (int j = 0; j < 2; ++j) d[7 + j] = u[src][j];
+    if constexpr (kAttrs) {
+      for (int j = 0; j < 3; ++j) d[4 + j] = n[src][j];
+      for (int j = 0; j < 2; ++j) d[7 + j] = u[src][j];
+    }
   }
   const float tAB = lerp_t(A[2], Bv[2]), tAC = lerp_t(A[2], Cv[2]), tBC = lerp_t(Bv[2], Cv[2]);
   const bool sel1 = n_in == 1, sel2 = n_in == 2, sel3 = n_in == 3;
   Slot s0, s1;
-  for (int k = 0; k < 9; ++k) {
+  for (int k = 0; k < kComps; ++k) {
     const float a = A[k], b = Bv[k], cc = Cv[k];
     const float ab = a + (b - a) * tAB;
     const float ac = a + (cc - a) * tAC;
@@ -170,9 +189,10 @@ setup_kernel(const float* __restrict__ pos, const float* __restrict__ nrm,
     }
   }
   const float mid = float(m);
-  emit(s0, mid, W, H, cull, packed + (size_t)(2 * t) * kStride, aabb + (size_t)(2 * t) * 4);
-  emit(s1, mid, W, H, cull, packed + (size_t)(2 * t + 1) * kStride,
-       aabb + (size_t)(2 * t + 1) * 4);
+  emit<kAttrs>(s0, mid, W, H, cull, packed + (size_t)(2 * t) * kStride,
+               aabb + (size_t)(2 * t) * 4);
+  emit<kAttrs>(s1, mid, W, H, cull, packed + (size_t)(2 * t + 1) * kStride,
+               aabb + (size_t)(2 * t + 1) * 4);
 }
 
 }  // namespace
@@ -185,8 +205,20 @@ extern "C" int setup_triangles_launch(const float* pos, const float* nrm, const 
   if (T > 0) {
     const int blocks = (T + kThreads - 1) / kThreads;
     const size_t smem = sizeof(float) * 25 * (size_t)M;
-    setup_kernel<<<blocks, kThreads, smem, stream>>>(pos, nrm, uv, mesh_id, mvp, model, T,
-                                                     M, W, H, cull, packed, aabb);
+    setup_kernel<true><<<blocks, kThreads, smem, stream>>>(pos, nrm, uv, mesh_id, mvp, model, T,
+                                                           M, W, H, cull, packed, aabb);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int setup_depth_launch(const float* pos, const int* mesh_id, const float* mvp, int T,
+                                  int M, float W, float H, int cull, float* packed, float* aabb,
+                                  cudaStream_t stream) {
+  if (T > 0) {
+    const int blocks = (T + kThreads - 1) / kThreads;
+    const size_t smem = sizeof(float) * 16 * (size_t)M;
+    setup_kernel<false><<<blocks, kThreads, smem, stream>>>(pos, nullptr, nullptr, mesh_id, mvp,
+                                                            nullptr, T, M, W, H, cull, packed, aabb);
   }
   return (int)cudaGetLastError();
 }

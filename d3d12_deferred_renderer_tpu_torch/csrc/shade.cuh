@@ -38,20 +38,63 @@ __device__ __forceinline__ void world_from_depth(const float* s_u, float px, flo
   w[2] = h[2] * inv_hw;
 }
 
-// Linear HDR of one covered pixel: directional GGX times the visibility
-// `vis` (1 where there is no visibility plane: an exact multiply), the
+// Unit vector from the world position toward the eye.
+__device__ __forceinline__ void view_dir(const float* s_u, const float (&wpos)[3], float (&V)[3]) {
+  V[0] = s_u[U_EYE] - wpos[0];
+  V[1] = s_u[U_EYE + 1] - wpos[1];
+  V[2] = s_u[U_EYE + 2] - wpos[2];
+  const float iv = rsqrt_guarded((V[0] * V[0] + V[1] * V[1]) + V[2] * V[2], 1e-38f);
+  V[0] *= iv, V[1] *= iv, V[2] *= iv;
+}
+
+// Directional GGX (fused._ggx_planar) times the visibility `vis` (1 where
+// there is no visibility plane: an exact multiply) times the light color.
+// The G-buffer lighting kernel, the fused tile renderer and the directional
+// resolve kernel (resolve.cu) all shade the directional light here.
+__device__ __forceinline__ void directional(const float* s_u, const float (&N)[3],
+                                            const float (&V)[3], const float (&alb)[3],
+                                            float metal, float rough, float vis,
+                                            float (&out)[3]) {
+  const float ldir[3] = {s_u[U_LDIR], s_u[U_LDIR + 1], s_u[U_LDIR + 2]};
+  const float alpha = maxp(rough * rough, 1e-3f);
+  const float a2 = alpha * alpha;
+  const float kk = ((rough + 1.0f) * (rough + 1.0f)) / 8.0f;
+  const float ndv = maxp((N[0] * V[0] + N[1] * V[1]) + N[2] * V[2], 1e-4f);
+  const float g1 = ndv / (ndv * (1.0f - kk) + kk);
+  float H[3] = {V[0] + ldir[0], V[1] + ldir[1], V[2] + ldir[2]};
+  const float ih = rsqrt_guarded((H[0] * H[0] + H[1] * H[1]) + H[2] * H[2], 1e-38f);
+  H[0] *= ih, H[1] *= ih, H[2] *= ih;
+  const float ndl = maxp((N[0] * ldir[0] + N[1] * ldir[1]) + N[2] * ldir[2], 0.0f);
+  const float ndh = maxp((N[0] * H[0] + N[1] * H[1]) + N[2] * H[2], 0.0f);
+  const float vdh = maxp((V[0] * H[0] + V[1] * H[1]) + V[2] * H[2], 0.0f);
+  const float denom = ndh * ndh * (a2 - 1.0f) + 1.0f;
+  const float D = a2 / (kPi * denom * denom);
+  const float g2 = ndl / (ndl * (1.0f - kk) + kk + 1e-7f);
+  const float G = g1 * g2;
+  const float u = 1.0f - vdh;
+  const float u2 = u * u;
+  const float f5 = u2 * u2 * u;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float f0 = 0.04f * (1.0f - metal) + alb[c] * metal;
+    const float F = f0 + (1.0f - f0) * f5;
+    const float spec = (D * G) * F / (4.0f * ndv * ndl + 1e-4f);
+    const float diffuse = (1.0f - F) * (1.0f - metal) * alb[c] * kInvPi;
+    out[c] = (((diffuse + spec) * ndl) * vis) * s_u[U_LCOLOR + c];
+  }
+}
+
+// Linear HDR of one covered pixel: the directional term (left out with
+// kDirect off: the deferred-directional split adds it later), the
 // point-light GGX loop over the n_live rows of s_lrow (8 floats each: pos,
 // radius, color, intensity) in order, and ambient.
+template <bool kDirect = true>
 __device__ __forceinline__ void shade_pixel(const float* s_u, const float (&wpos)[3],
                                             const float (&N)[3], const float (&alb)[3],
                                             float metal, float rough, float vis,
                                             const float* s_lrow, int n_live, float (&hdr)[3]) {
-  const float ldir[3] = {s_u[U_LDIR], s_u[U_LDIR + 1], s_u[U_LDIR + 2]};
-  float V[3] = {s_u[U_EYE] - wpos[0], s_u[U_EYE + 1] - wpos[1], s_u[U_EYE + 2] - wpos[2]};
-  const float iv = rsqrt_guarded((V[0] * V[0] + V[1] * V[1]) + V[2] * V[2], 1e-38f);
-  V[0] *= iv, V[1] *= iv, V[2] *= iv;
-
-  // Directional GGX (fused._ggx_planar).
+  float V[3];
+  view_dir(s_u, wpos, V);
   const float alpha = maxp(rough * rough, 1e-3f);
   const float a2 = alpha * alpha;
   const float kk = ((rough + 1.0f) * (rough + 1.0f)) / 8.0f;
@@ -60,29 +103,8 @@ __device__ __forceinline__ void shade_pixel(const float* s_u, const float (&wpos
   float f0[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) f0[c] = 0.04f * (1.0f - metal) + alb[c] * metal;
-  float acc[3];
-  {
-    float H[3] = {V[0] + ldir[0], V[1] + ldir[1], V[2] + ldir[2]};
-    const float ih = rsqrt_guarded((H[0] * H[0] + H[1] * H[1]) + H[2] * H[2], 1e-38f);
-    H[0] *= ih, H[1] *= ih, H[2] *= ih;
-    const float ndl = maxp((N[0] * ldir[0] + N[1] * ldir[1]) + N[2] * ldir[2], 0.0f);
-    const float ndh = maxp((N[0] * H[0] + N[1] * H[1]) + N[2] * H[2], 0.0f);
-    const float vdh = maxp((V[0] * H[0] + V[1] * H[1]) + V[2] * H[2], 0.0f);
-    const float denom = ndh * ndh * (a2 - 1.0f) + 1.0f;
-    const float D = a2 / (kPi * denom * denom);
-    const float g2 = ndl / (ndl * (1.0f - kk) + kk + 1e-7f);
-    const float G = g1 * g2;
-    const float u = 1.0f - vdh;
-    const float u2 = u * u;
-    const float f5 = u2 * u2 * u;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float F = f0[c] + (1.0f - f0[c]) * f5;
-      const float spec = (D * G) * F / (4.0f * ndv * ndl + 1e-4f);
-      const float diffuse = (1.0f - F) * (1.0f - metal) * alb[c] * kInvPi;
-      acc[c] = (((diffuse + spec) * ndl) * vis) * s_u[U_LCOLOR + c];
-    }
-  }
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (kDirect) directional(s_u, N, V, alb, metal, rough, vis, acc);
   // Point lights, in the order of s_lrow (ascending light id).
   for (int s = 0; s < n_live; ++s) {
     const float* lr = s_lrow + 8 * s;

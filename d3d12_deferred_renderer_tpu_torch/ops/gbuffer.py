@@ -21,7 +21,7 @@ import torch
 
 from ..config import RendererConfig
 from ..scene import Materials
-from ..xmath import normalize_safe, powf
+from ..xmath import divf, normalize_safe, powf
 from .raster_ref import FragmentPlanes
 
 
@@ -39,9 +39,10 @@ class DecodedGBuffer(NamedTuple):
 
 
 def quantize_unorm(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Float -> UNORM(bits) -> float round trip."""
+    """Float -> UNORM(bits) -> float round trip (the decode a true division,
+    on the card too)."""
     scale = float((1 << bits) - 1)
-    return torch.round(torch.clamp(x, 0.0, 1.0) * scale) / scale
+    return divf(torch.round(torch.clamp(x, 0.0, 1.0) * scale), scale)
 
 
 def encode_gbuffer(frags: FragmentPlanes, materials: Materials, cfg: RendererConfig) -> GBuffer:

@@ -269,14 +269,16 @@ def cull_lights_to_tiles(
 def shade_pbr_tiled(
     gb: GBuffer, lights: Lights, cfg: RendererConfig, view_proj: torch.Tensor,
     eye: torch.Tensor, tile: int = 32, shadow_visibility: Optional[torch.Tensor] = None,
-    return_overflow: bool = False,
+    return_overflow: bool = False, inv_vp: Optional[torch.Tensor] = None,
 ):
     """PBR shading with per-tile light culling -> linear HDR [H, W, 3].
     Equals shade_pbr when no tile's live-light count exceeds
     cfg.max_lights_per_tile; a tile over the cap drops its excess lights and
-    counts in the overflow (returned with return_overflow=True)."""
+    counts in the overflow (returned with return_overflow=True).  inv_vp is
+    the frame's inverse view-projection (computed here when None)."""
     d = decode_gbuffer(gb, cfg)
-    inv_vp = inverse_view_proj(view_proj)
+    if inv_vp is None:
+        inv_vp = inverse_view_proj(view_proj)
     world, v, radiance = _directional(gb, d, lights, cfg, view_proj, eye, shadow_visibility, inv_vp)
     overflow = torch.zeros((), dtype=torch.int32, device=gb.depth.device)
     if lights.num_point:

@@ -153,24 +153,38 @@ def world_from_depth(u, px, py, depth):
     return [hs[j] * inv_hw for j in range(3)]
 
 
-def shade_pixels_reference(u, depth, world, n, alb, metal, rough, lights, ids, n_live, vis=None):
-    """Deferred shading of tile pixels -> linear HDR, 3 planes [NT, P].
-
-    u [32] uniforms; depth, metal, rough [NT, P]; world, n, alb 3-lists of
-    [NT, P]; lights [>= L, 8]; ids [NT, S] light ids, the first n_live[t]
-    of tile t live, ascending; vis [NT, P] or None.  Directional GGX (x vis),
-    the point-light loop in id order, ambient; 0 where depth is 1."""
-    eye = [u[U_EYE + i] for i in range(3)]
-    v = [eye[i] - world[i] for i in range(3)]
+def view_dirs(u, world):
+    """Unit vectors from the world positions toward the eye."""
+    v = [u[U_EYE + i] - world[i] for i in range(3)]
     iv = _rsqrt_guarded(dot3(v, v), 1e-38)
-    v = [c * iv for c in v]
+    return [c * iv for c in v]
+
+
+def directional_radiance(u, n, v, alb, metal, rough, vis=None):
+    """Directional GGX times the visibility (when given) times the light
+    color, 3 planes."""
     ldir = [u[U_LDIR + i] for i in range(3)]
     direct = _ggx_directional(ldir, n, v, alb, metal, rough)
     if vis is not None:
         direct = [d * vis for d in direct]
-    acc = [direct[c] * u[U_LCOLOR + c] for c in range(3)]
+    return [direct[c] * u[U_LCOLOR + c] for c in range(3)]
 
+
+def shade_pixels_reference(u, depth, world, n, alb, metal, rough, lights, ids, n_live, vis=None,
+                           direct=True):
+    """Deferred shading of tile pixels -> linear HDR, 3 planes [NT, P].
+
+    u [32] uniforms; depth, metal, rough [NT, P]; world, n, alb 3-lists of
+    [NT, P]; lights [>= L, 8]; ids [NT, S] light ids, the first n_live[t]
+    of tile t live, ascending; vis [NT, P] or None.  Directional GGX (x vis;
+    left out with direct False, for the deferred-directional split), the
+    point-light loop in id order, ambient; 0 where depth is 1."""
+    v = view_dirs(u, world)
     zero = torch.zeros_like(depth)
+    if direct:
+        acc = directional_radiance(u, n, v, alb, metal, rough, vis)
+    else:
+        acc = [zero] * 3
     ndv = torch.clamp(dot3(n, v), min=1e-4)
     alpha = torch.clamp(rough * rough, min=1e-3)
     a2 = alpha * alpha
@@ -301,18 +315,20 @@ def gbuffer_planes(gb: GBuffer, Hp: int, Wp: int, shadow_visibility=None) -> tor
 def shade_pbr_tiled_kernel(
     gb: GBuffer, lights: Lights, cfg: RendererConfig, view_proj: torch.Tensor, eye: torch.Tensor,
     shadow_visibility: Optional[torch.Tensor] = None, return_overflow: bool = False,
+    inv_vp: Optional[torch.Tensor] = None,
 ):
     """Tiled-deferred PBR shading through the lighting kernel's wrapper ->
-    linear HDR [H, W, 3] (the lighting.shade_pbr_tiled contract), and with
-    return_overflow the int32 count of tiles whose live lights exceeded
-    min(L, cfg.max_live_lights_per_tile)."""
+    linear HDR [H, W, 3] (the lighting.shade_pbr_tiled contract, inv_vp
+    included), and with return_overflow the int32 count of tiles whose live
+    lights exceeded min(L, cfg.max_live_lights_per_tile)."""
     H, W = gb.depth.shape
     TH, TW = cfg.tile_h, cfg.tile_w
     nty, ntx = -(-H // TH), -(-W // TW)
     NT = nty * ntx
     dev = gb.depth.device
     planes = gbuffer_planes(gb, nty * TH, ntx * TW, shadow_visibility)
-    inv_vp = inverse_view_proj(view_proj)
+    if inv_vp is None:
+        inv_vp = inverse_view_proj(view_proj)
     L = lights.num_point
     if L:
         tl = cull_lights_to_tiles(

@@ -13,11 +13,14 @@ mesh id (a float, -1 for background) and a zero pad plane.
 
 ``raster_tile_pixels`` is the raster loop itself, in plain PyTorch over
 [tiles, pixels] tensors: the plain version of the tile raster that the fused
-tile kernel and this module's kernel share (csrc/raster.cuh).
+tile kernel and this module's kernels share (csrc/raster.cuh).
 ``raster_tiles_reference`` lays its output out as planes; ``raster_tiles``
 is the wrapper that runs the CUDA kernel (csrc/raster.cu) on CUDA tensors and
-the plain version on CPU tensors.  The stream variant serves every scene: the
-port's binning always builds the stream.
+the plain version on CPU tensors.  ``raster_depth`` / ``raster_depth_reference``
+are the same pair for the depth-only raster (the JAX package's
+``rasterize_depth`` kernels: the shadow map, on 16 x 128 tiles of up to 2048
+pixels), bit-equal to the full raster's depth plane.  The stream variant
+serves every scene: the port's binning always builds the stream.
 """
 from __future__ import annotations
 
@@ -79,14 +82,17 @@ def image_to_tiles(a: torch.Tensor, nty: int, ntx: int, tile_h: int, tile_w: int
     )
 
 
-def raster_tile_pixels(counts, offs, stream, px, py, uv: bool = True) -> TileFragments:
+def raster_tile_pixels(counts, offs, stream, px, py, uv: bool = True,
+                       attrs: bool = True) -> TileFragments:
     """Plain version of the tile raster: one list slot at a time over every
     tile.  counts [NT] int32, offs [NT + 1] int32, stream [R, 32] f32,
-    px/py [NT, P] pixel centers."""
+    px/py [NT, P] pixel centers.  With attrs False only the depth is
+    rasterized (normal and uv lists empty, mesh id None)."""
     dev = stream.device
     NT, P = px.shape
+    uv = uv and attrs
     depth = torch.ones((NT, P), dtype=F32, device=dev)
-    nrm = [torch.zeros((NT, P), dtype=F32, device=dev) for _ in range(3)]
+    nrm = [torch.zeros((NT, P), dtype=F32, device=dev) for _ in range(3 if attrs else 0)]
     tex = [torch.zeros((NT, P), dtype=F32, device=dev) for _ in range(2 if uv else 0)]
     mid = torch.full((NT, P), -1.0, dtype=F32, device=dev)
     base = offs[:-1].long()
@@ -98,12 +104,14 @@ def raster_tile_pixels(counts, offs, stream, px, py, uv: bool = True) -> TileFra
         ok = (rec[:, TRI_VALID : TRI_VALID + 1] > 0.0) & (k < counts)[:, None]
         passes = covered & ok & (z >= 0.0) & (z <= 1.0) & (z < depth)
         depth = torch.where(passes, z, depth)
+        if not attrs:
+            continue
         for j in range(3):
             nrm[j] = torch.where(passes, perspective_attr(rec, bs, TRI_N0 + j, 3), nrm[j])
         for j in range(len(tex)):
             tex[j] = torch.where(passes, perspective_attr(rec, bs, TRI_UV0 + j, 2), tex[j])
         mid = torch.where(passes, rec[:, TRI_MESH_ID : TRI_MESH_ID + 1], mid)
-    return TileFragments(depth=depth, normal=nrm, uv=tex, mesh_id=mid)
+    return TileFragments(depth=depth, normal=nrm, uv=tex, mesh_id=mid if attrs else None)
 
 
 def raster_tiles_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
@@ -142,6 +150,63 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Ten
 
 
 raster_tiles.launches = 0
+
+
+# The depth-only kernel runs 256 threads of up to 8 pixels a tile: the
+# shadow map's 16 x 128 tiles.
+DEPTH_MAX_TILE_PIXELS = 2048
+
+
+def raster_depth_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
+    """Plain version of the depth-only tile raster kernel -> depth [Hp, Wp]
+    f32, cleared to 1: the depth plane of raster_tiles_reference."""
+    px, py = tile_pixels(nty, ntx, tile_h, tile_w, stream.device)
+    f = raster_tile_pixels(counts, offs, stream, px, py, attrs=False)
+    return tiles_to_image(f.depth, nty, ntx, tile_h, tile_w)
+
+
+def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
+    """Depth-only tile raster: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (see raster_depth_reference for the contract)."""
+    if stream.device.type == "cpu":
+        return raster_depth_reference(counts, offs, stream, nty=nty, ntx=ntx,
+                                      tile_h=tile_h, tile_w=tile_w)
+    from ..utils import cuda_build
+
+    NT = nty * ntx
+    cuda_build.check_tensors(
+        stream.device,
+        counts=(counts, torch.int32, (NT,)),
+        offs=(offs, torch.int32, (NT + 1,)),
+        stream=(stream, F32, (None, TRI_STRIDE)),
+    )
+    if tile_h * tile_w > DEPTH_MAX_TILE_PIXELS:
+        raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's {DEPTH_MAX_TILE_PIXELS}")
+    depth = torch.empty((nty * tile_h, ntx * tile_w), dtype=F32, device=stream.device)
+    err = cuda_build.library().raster_depth_launch(
+        counts.data_ptr(), offs.data_ptr(), stream.data_ptr(), nty, ntx, tile_h, tile_w,
+        depth.data_ptr(), torch.cuda.current_stream(stream.device).cuda_stream,
+    )
+    cuda_build.raise_on_error(err, "raster_depth")
+    raster_depth.launches += 1
+    return depth
+
+
+raster_depth.launches = 0
+
+
+def rasterize_depth(packed, aabb, valid, cfg: RendererConfig, return_overflow: bool = False):
+    """Bin the [T, 32] records onto the cfg tile grid and rasterize depth
+    only -> depth [H, W] (cleared to 1; bit-equal to rasterize_binned's
+    depth), and with return_overflow the binning's int32 overflow count.
+    The frame size comes from cfg: the shadow map passes a config of its
+    own size (shadows.shadow_bin_config)."""
+    TH, TW = cfg.tile_h, cfg.tile_w
+    nty, ntx = -(-cfg.height // TH), -(-cfg.width // TW)
+    binned = bin_triangles(packed, aabb, valid, cfg)
+    depth = raster_depth(binned.counts, binned.offs, binned.stream,
+                         nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)[: cfg.height, : cfg.width]
+    return (depth, binned.overflow) if return_overflow else depth
 
 
 def fragments_from_planes(planes: torch.Tensor, height: int, width: int) -> FragmentPlanes:

@@ -58,23 +58,15 @@ def camera_matrices(state: SceneState, cfg: RendererConfig):
     return view, proj
 
 
-def _fv_select_mats(tri_mesh_id: torch.Tensor, mvp: torch.Tensor, model: torch.Tensor):
-    """Per-triangle matrices by index: (selC [16, T], selN [9, T]); row k*4+c of
-    selC is mvp[mesh(t), k, c], row k*3+j of selN is model[mesh(t), k, j]."""
-    M = mvp.shape[0]
-    idx = tri_mesh_id.long()
-    selC = mvp.reshape(M, 16)[idx].T
-    selN = model[:, :3, :3].reshape(M, 9)[idx].T
-    return selC, selN
-
-
 def _fv_transform_cols(pos_cols, nrm_cols, tri_mesh_id, mvp, model):
-    """Clip positions [3, 4, T] and world normals [3, 3, T] of every corner.
+    """Clip positions [3, 4, T] and world normals [3, 3, T] of every corner,
+    with each triangle's matrices selected by its mesh id.
     Row-vector convention: clip[c] = sum_k pos_h[k] * mvp[k, c], pos_h[3] = 1;
     normals go through the model matrix, not its inverse-transpose (a
-    reference quirk, geometry.hlsl:37)."""
-    selC, selN = _fv_select_mats(tri_mesh_id, mvp, model)
-    sC = selC.reshape(4, 4, -1)
+    reference quirk, geometry.hlsl:37).  Without normals (nrm_cols None,
+    depth-only passes) the normals come back None."""
+    idx = tri_mesh_id.long()
+    sC = mvp.reshape(mvp.shape[0], 16)[idx].T.reshape(4, 4, -1)
     p = pos_cols
     c = (
         p[:, 0, None, :] * sC[0][None]
@@ -82,7 +74,9 @@ def _fv_transform_cols(pos_cols, nrm_cols, tri_mesh_id, mvp, model):
         + p[:, 2, None, :] * sC[2][None]
         + sC[3][None]
     )
-    sN = selN.reshape(3, 3, -1)
+    if nrm_cols is None:
+        return c, None
+    sN = model[:, :3, :3].reshape(model.shape[0], 9)[idx].T.reshape(3, 3, -1)
     nr = nrm_cols
     n = (
         nr[:, 0, None, :] * sN[0][None]
@@ -99,7 +93,8 @@ def _clip_near_plane_stack(c, n, uv):
     clipped quad; none inside -> two degenerates.  A cyclic vertex rotation
     keeps the winding; attributes lerp in clip space.
 
-    Inputs [3, C, T]; outputs [3, C, 2T] with slot pairs interleaved."""
+    Inputs [3, C, T]; outputs [3, C, 2T] with slot pairs interleaved.  `n`
+    and `uv` may be None (depth-only passes) and come back None."""
     z0, z1, z2 = c[0, 2], c[1, 2], c[2, 2]
     in0, in1, in2 = z0 >= 0.0, z1 >= 0.0, z2 >= 0.0
     n_in = in0.int() + in1.int() + in2.int()
@@ -113,6 +108,8 @@ def _clip_near_plane_stack(c, n, uv):
     r = torch.where(n_in == 1, first_in, torch.where(n_in == 2, (first_out + 1) % 3, 0))
 
     def rot(a):  # rotated[v] = a[(v + r) % 3]
+        if a is None:
+            return None
         a1 = torch.cat([a[1:], a[:1]], 0)
         a2 = torch.cat([a[2:], a[:2]], 0)
         return torch.where(r == 0, a, torch.where(r == 1, a1, a2))
@@ -128,6 +125,8 @@ def _clip_near_plane_stack(c, n, uv):
     sel1, sel2, sel3 = n_in == 1, n_in == 2, n_in == 3
 
     def clip_attr(a):
+        if a is None:
+            return None
         A, B, C = a[0], a[1], a[2]
         AB = A + (B - A) * tAB
         AC = A + (C - A) * tAC
@@ -146,7 +145,8 @@ def _clip_near_plane_stack(c, n, uv):
 
 def _setup_cols(c, n, uv, tri_mesh_id, width, height, cull="back"):
     """Near clip, viewport, cull, canonical winding and record packing over
-    stacked columns: c [3, 4, T], n [3, 3, T], uv [3, 2, T]."""
+    stacked columns: c [3, 4, T], n [3, 3, T], uv [3, 2, T].  With n and uv
+    None (depth-only passes: the shadow map) record fields 12-26 are zero."""
     if cull not in CULL_MODES:
         raise ValueError(f"unknown cull mode {cull!r}")
     W, H = width, height
@@ -183,12 +183,15 @@ def _setup_cols(c, n, uv, tri_mesh_id, width, height, cull="back"):
         return (a[0], torch.where(swap, a[2], a[1]), torch.where(swap, a[1], a[2]))
 
     psx, psy, pz, prw = pick(sx), pick(sy), pick(sz), pick(rw)
-    pn, puv = pick(n), pick(uv)
     area_c = torch.abs(area2)
     zero = torch.zeros_like(area_c)
     rows = [psx[0], psy[0], psx[1], psy[1], psx[2], psy[2], *pz, *prw]
-    rows += [pn[v][j] * prw[v] for v in range(3) for j in range(3)]
-    rows += [puv[v][k] * prw[v] for v in range(3) for k in range(2)]
+    if n is None:
+        rows += [zero] * 15
+    else:
+        pn, puv = pick(n), pick(uv)
+        rows += [pn[v][j] * prw[v] for v in range(3) for j in range(3)]
+        rows += [puv[v][k] * prw[v] for v in range(3) for k in range(2)]
     rows += [mesh_id.to(torch.float32), valid.to(torch.float32), area_c, zero, zero]
     packed = torch.stack(rows, 1)
     aabb = torch.stack([
@@ -207,6 +210,14 @@ def setup_triangles_reference(
     """Plain PyTorch version of the setup kernel: same inputs, same records."""
     c, n = _fv_transform_cols(pos_cols, nrm_cols, tri_mesh_id, mvp, model)
     return _setup_cols(c, n, uv_cols, tri_mesh_id, width, height, cull)
+
+
+def setup_depth_reference(pos_cols, tri_mesh_id, mvp, width, height, cull="none") -> TriSetup:
+    """Plain PyTorch version of the depth-only setup kernel (the shadow
+    map's light-view pass): the clip transform alone, no normal or uv, and
+    record fields 12-26 zero."""
+    c, _ = _fv_transform_cols(pos_cols, None, tri_mesh_id, mvp, None)
+    return _setup_cols(c, None, None, tri_mesh_id, width, height, cull)
 
 
 def frame_matrices(state: SceneState, cfg: RendererConfig):

@@ -46,14 +46,23 @@ F = ctypes.c_float
 SIGNATURES = {
     # pos, nrm, uv, mesh_id, mvp, model, T, M, W, H, cull, packed, aabb, stream
     "setup_triangles_launch": (P, P, P, P, P, P, I, I, F, F, I, P, P, P),
-    # counts, offs, records, lights, n_lights, mats, uniforms, nty, ntx,
-    # tile_h, tile_w, ik_slots, inv_gamma, color, tile_overflow, stream
-    "fused_tiles_launch": (P, P, P, P, I, P, P, I, I, I, I, I, F, P, P, P),
+    # pos, mesh_id, mvp, T, M, W, H, cull, packed, aabb, stream
+    "setup_depth_launch": (P, P, P, I, I, F, F, I, P, P, P),
+    # counts, offs, records, lights, n_lights, mats, n_mats, uniforms, nty,
+    # ntx, tile_h, tile_w, ik_slots, inv_gamma, bump, strength, 2 pi freq,
+    # hdr_out, aux, color, tile_overflow, stream
+    "fused_tiles_launch": (P, P, P, P, I, P, I, P, I, I, I, I, I, F, I, F, F, I, I, P, P, P),
     # counts, offs, records, nty, ntx, tile_h, tile_w, planes, stream
     "raster_tiles_launch": (P, P, P, I, I, I, I, P, P),
+    # counts, offs, records, nty, ntx, tile_h, tile_w, depth, stream
+    "raster_depth_launch": (P, P, P, I, I, I, I, P, P),
     # planes, n_planes, lights, n_rows, ids, lk, counts, uniforms, nty, ntx,
     # tile_h, tile_w, gamma, hdr, stream
     "shade_tiles_launch": (P, I, P, I, P, I, P, P, I, I, I, I, F, P, P),
+    # planes, uniforms, nty, ntx, tile_h, tile_w, strength, 2 pi freq, out, stream
+    "bump_tiles_launch": (P, P, I, I, I, I, F, F, P, P),
+    # planes, vis, mats, n_mats, uniforms, Hp, Wp, hdr, stream
+    "directional_resolve_launch": (P, P, P, I, P, I, I, P, P),
 }
 
 

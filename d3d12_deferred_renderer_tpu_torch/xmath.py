@@ -30,8 +30,12 @@ __all__ = [
     "model_matrix",
     "normalize_safe",
     "matmul4",
+    "matmul4_fma",
     "fma",
+    "sinf",
+    "rsqrtf",
     "powf",
+    "divf",
 ]
 
 XM_PI = 3.141592653589793
@@ -62,11 +66,43 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def matmul4_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] @ [..., 4, 4] rounded as XLA's CPU dot rounds it: the
+    first product, then one fused multiply-add per further term, k = 1, 2,
+    3 (the JAX package's ``a @ b``)."""
+    acc = a[..., :, 0, None] * b[..., None, 0, :]
+    for k in range(1, 4):
+        acc = fma(a[..., :, k, None], b[..., None, k, :], acc)
+    return acc
+
+
+def sinf(x: torch.Tensor) -> torch.Tensor:
+    """sin of float32 x, taken in float64 and rounded once: the correctly
+    rounded value almost always, which XLA's float32 sin gives on about 99%
+    of inputs (and within 1 ULP on the rest); the CUDA kernels take it the
+    same way, so the plain versions and the kernels agree bit for bit."""
+    return torch.sin(x.double()).float()
+
+
+def rsqrtf(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x) of float32 x, taken in float64 and rounded once (XLA's
+    rsqrt is within 1 ULP of it); the CUDA kernels take it the same way."""
+    return (1.0 / torch.sqrt(x.double())).float()
+
+
 def powf(x: torch.Tensor, e: float) -> torch.Tensor:
     """x ** e for float32 x, rounded as XLA rounds jnp.power: the exponent
     taken as a float32, the power evaluated in float64 and rounded once."""
     e32 = float(torch.tensor(e, dtype=F32))
     return torch.pow(x.double(), e32).float()
+
+
+def divf(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b for a float32 tensor and a Python number, rounded once on every
+    device.  torch on CUDA divides by a Python scalar as a multiply by its
+    rounded reciprocal, up to 1 ULP off the quotient that the CPU, XLA and
+    the CUDA kernels give; a divisor tensor on a's device divides."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def _norm3(v: torch.Tensor) -> torch.Tensor:

@@ -74,7 +74,8 @@ def test_tile_kernel_matches_plain(size, live, radius):
     L = state.lights.num_point
     args = (binned.counts, binned.offs, binned.stream, fused.build_light_table(state.lights),
             fused.build_material_table(state.materials, cfg.gamma),
-            fused.build_uniforms(state, cfg, view_proj))
+            lighting_cuda.make_uniforms(state.camera.eye, state.lights, cfg,
+                                        lighting.inverse_view_proj(view_proj), cfg.width, cfg.height))
     kw = dict(nty=-(-cfg.height // 8), ntx=-(-cfg.width // 128), tile_h=8, tile_w=128,
               n_lights=L, ik_slots=fused.live_light_slots(cfg, L), gamma=cfg.gamma)
     before = fused.fused_tiles.launches
@@ -223,3 +224,195 @@ def test_staged_wrappers_reject_bad_input():
         broken[i] = bad
         with pytest.raises((ValueError, TypeError)):
             lighting_cuda.shade_tiles(*broken, **skw)
+
+
+# ---- the config-4 kernels: depth-only setup (K4), depth raster (K3), bump
+# (K8), directional resolve (K5) and the tile renderer's variants (K2) ----
+
+CONFIG4 = dataclasses.replace(
+    tp.FLAGSHIP_CONFIG, width=256, height=64, fused=True, shadows=True, normal_mapping=True,
+    bloom=True, deferred_directional=True, inkernel_light_cull=True, max_lights_per_tile=128,
+    shadow_vis_downsample=1, shadow_map_size=256,
+)
+
+
+@pytest.mark.cuda
+def test_depth_setup_kernel_matches_plain():
+    """Light-view records and boxes bit-equal, cull none, fields 12-26 zero."""
+    from d3d12_deferred_renderer_tpu_torch import xmath
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+    from d3d12_deferred_renderer_tpu_torch.ops.transform import setup_depth_reference
+
+    dev = _cuda()
+    state = _scene(CONFIG4, dev)
+    model = xmath.model_matrix(state.position, state.orientation, state.scale)
+    mvp = xmath.matmul4_fma(model, shadows.light_view_proj(state.lights.direction))
+    g = state.geometry
+    before = setup_cuda.setup_depth_triangles.launches
+    got = setup_cuda.setup_depth_triangles(g.fv_pos_cols, g.tri_mesh_id, mvp, 256, 256)
+    ref = setup_depth_reference(g.fv_pos_cols, g.tri_mesh_id, mvp, 256, 256)
+    torch.cuda.synchronize()
+    assert setup_cuda.setup_depth_triangles.launches == before + 1
+    assert torch.equal(got.packed, ref.packed) and torch.equal(got.aabb, ref.aabb)
+    assert not got.packed[:, 12:27].any() and int(got.valid.sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(16, 128), (8, 128)], ids=["shadow_16x128", "screen_8x128"])
+def test_depth_raster_kernel_matches_plain(tile):
+    """Depth bit-equal to the plain version and to the full tile raster
+    kernel's depth plane on the same binned records."""
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+
+    dev = _cuda()
+    state = _scene(CONFIG4, dev)
+    scfg = dataclasses.replace(shadows.shadow_bin_config(CONFIG4, state.geometry.tri_mesh_id.shape[0]),
+                               tile_h=tile[0], tile_w=tile[1])
+    tris = shadows.setup_light_view_triangles(state, scfg, shadows.light_view_proj(state.lights.direction))
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, scfg)
+    kw = dict(nty=256 // tile[0], ntx=2, tile_h=tile[0], tile_w=tile[1])
+    before = raster_tiles.raster_depth.launches
+    got = raster_tiles.raster_depth(b.counts, b.offs, b.stream, **kw)
+    ref = raster_tiles.raster_depth_reference(b.counts, b.offs, b.stream, **kw)
+    torch.cuda.synchronize()
+    assert raster_tiles.raster_depth.launches == before + 1
+    assert torch.equal(got, ref)
+    assert 0.05 < float((got < 1.0).double().mean()) < 1.0
+    if tile[0] * tile[1] <= 1024:
+        full = raster_tiles.raster_tiles(b.counts, b.offs, b.stream, **kw)
+        assert torch.equal(full[raster_tiles.PLANE_DEPTH], got)
+
+
+def _fragments(cfg, dev):
+    state = _scene(cfg, dev)
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    return state, raster_tiles.rasterize_binned(tris.packed, tris.aabb, tris.valid, cfg), view_proj
+
+
+@pytest.mark.cuda
+def test_bump_kernel_matches_plain():
+    """Normals within 1e-6 (bit-equal on the card): the kernel and the plain
+    version round every operation once, sin and rsqrt in double precision
+    alike."""
+    from d3d12_deferred_renderer_tpu_torch.ops import bump
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CONFIG4, width=200, height=60, fused=False)
+    state, frags, view_proj = _fragments(cfg, dev)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    planes = bump.bump_planes(frags, 64, 256)
+    args = (planes, bump.bump_uniforms(inv_vp, 200, 60))
+    kw = dict(nty=8, ntx=2, tile_h=8, tile_w=128, strength=cfg.bump_strength, freq=cfg.bump_frequency)
+    before = bump.bump_tiles.launches
+    got = bump.bump_tiles(*args, **kw)
+    ref = bump.bump_tiles_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert bump.bump_tiles.launches == before + 1
+    assert float((got - ref).abs().max()) <= 1e-6
+    assert float((got[:, :60, :200] != planes[1:4, :60, :200]).any(0).double().mean()) > 0.2
+
+
+@pytest.mark.cuda
+def test_resolve_kernel_matches_plain():
+    """HDR within rtol 2e-4, atol 2e-5 (the lighting kernel's contract);
+    the two share the plain directional GGX operation for operation."""
+    dev = _cuda()
+    cfg = CONFIG4
+    state = _scene(cfg, dev)
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    u = lighting_cuda.make_uniforms(state.camera.eye, state.lights, cfg, inv_vp, 256, 64)
+    mats = fused.build_material_table(state.materials, cfg.gamma)
+    L = state.lights.num_point
+    out, _ = fused.fused_tiles_reference(
+        b.counts, b.offs, b.stream, fused.build_light_table(state.lights), mats, u,
+        nty=8, ntx=2, tile_h=8, tile_w=128, n_lights=L, ik_slots=fused.live_light_slots(cfg, L),
+        gamma=cfg.gamma, bump=(cfg.bump_strength, cfg.bump_frequency), aux=True)
+    vis = torch.rand((64, 256), generator=torch.Generator().manual_seed(5)).to(dev)
+    before = fused.directional_resolve.launches
+    got = fused.directional_resolve(out, vis, mats, u)
+    ref = fused.directional_resolve_reference(out, vis, mats, u)
+    torch.cuda.synchronize()
+    assert fused.directional_resolve.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+    assert float((got - out[:3]).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bump", "hdr_out", "split"])
+def test_tile_kernel_variants_match_plain(variant):
+    """The tile renderer's config-4 variants: equal tile overflow, color
+    within 1 u8 LSB on fewer than 1% of pixels (after tonemap and gamma for
+    linear HDR); with the split, the depth and mesh-id planes bit-equal to
+    the tile raster kernel's on the same binned records, and the depth,
+    normal and mesh-id planes bit-equal to the plain version's."""
+    dev = _cuda()
+    cfg = dataclasses.replace(CONFIG4, width=200, height=60)
+    state = _scene(cfg, dev)
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
+    L = state.lights.num_point
+    args = (b.counts, b.offs, b.stream, fused.build_light_table(state.lights),
+            fused.build_material_table(state.materials, cfg.gamma),
+            lighting_cuda.make_uniforms(state.camera.eye, state.lights, cfg,
+                                        lighting.inverse_view_proj(view_proj), cfg.width, cfg.height))
+    kw = dict(nty=8, ntx=2, tile_h=8, tile_w=128, n_lights=L, ik_slots=fused.live_light_slots(cfg, L),
+              gamma=cfg.gamma, bump=(cfg.bump_strength, cfg.bump_frequency) if variant != "hdr_out" else None,
+              hdr_out=variant != "bump", aux=variant == "split")
+    before = fused.fused_tiles.launches
+    got, got_ovf = fused.fused_tiles(*args, **kw)
+    ref, ref_ovf = fused.fused_tiles_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused.fused_tiles.launches == before + 1
+    assert got.shape == ref.shape == (8 if variant == "split" else 3, 64, 256)
+    assert torch.equal(got_ovf, ref_ovf)
+    if variant == "split":
+        planes = raster_tiles.raster_tiles(b.counts, b.offs, b.stream, nty=8, ntx=2, tile_h=8, tile_w=128)
+        assert torch.equal(got[3], planes[raster_tiles.PLANE_DEPTH])
+        assert torch.equal(got[7], planes[raster_tiles.PLANE_MID])
+        # Depth, the bumped and quantized normal, and mesh id bit-equal.
+        assert torch.equal(got[3:8], ref[3:8])
+    color = [c[:3] for c in (got, ref)]
+    if kw["hdr_out"]:
+        color = [tp.ops.post.gamma_encode(tp.ops.post.reinhard(c), cfg.gamma) for c in color]
+    d = (torch.round(color[0].clamp(0, 1) * 255) - torch.round(color[1].clamp(0, 1) * 255)).abs()
+    assert float(d.max()) <= 1.0 and float((d > 0).double().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["staged", "fused_split"])
+def test_config4_step_frame_on_the_card(config):
+    """tp.step_frame of config 4 on the card launches each kernel of its
+    path once a frame and agrees with the same frame rendered by the plain
+    versions on the CPU: max |du8| <= 1 on fewer than 2% of pixels (the
+    JAX package's config-4 contract), overflow 0.  The CPU frame takes the
+    card's inverse view-projection: the two devices' LU inverses differ in
+    the last bits, and a PCF tap that close to a shadow-map texel flips."""
+    from d3d12_deferred_renderer_tpu_torch.ops import bump
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CONFIG4, fused=config == "fused_split")
+    state = _scene(cfg, dev, n_lights=16)
+    counters = (setup_cuda.setup_triangles, setup_cuda.setup_depth_triangles, raster_tiles.raster_depth,
+                fused.fused_tiles, fused.directional_resolve, raster_tiles.raster_tiles, bump.bump_tiles,
+                lighting_cuda.shade_tiles)
+    before = [k.launches for k in counters]
+    for _ in range(3):
+        state, frame = tp.step_frame(state, cfg)
+    torch.cuda.synchronize()
+    launched = [k.launches - n for k, n in zip(counters, before)]
+    fused_path = [3, 3, 3, 3, 3, 0, 0, 0]
+    staged_path = [3, 3, 3, 0, 0, 3, 3, 3]
+    assert launched == (fused_path if config == "fused_split" else staged_path)
+    cpu_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
+    inv_ex = torch.linalg.inv_ex
+    try:
+        torch.linalg.inv_ex = lambda a: tuple(x.to(a.device) for x in inv_ex(a.to(dev)))
+        plain, stats = tp.render_stats(cpu_state, cfg)
+    finally:
+        torch.linalg.inv_ex = inv_ex
+    assert int(stats["overflow"]) == 0
+    d = (frame.cpu().int() - plain.int()).abs().amax(-1)
+    assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.02
+    assert float((frame.amax(-1) > 0).double().mean()) > 0.2

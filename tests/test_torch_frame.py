@@ -118,6 +118,9 @@ def test_port_imports_no_jax():
         "d3d12_deferred_renderer_tpu_torch.ops.lighting_cuda, "
         "d3d12_deferred_renderer_tpu_torch.ops.lighting, "
         "d3d12_deferred_renderer_tpu_torch.ops.post, "
+        "d3d12_deferred_renderer_tpu_torch.ops.shadows, "
+        "d3d12_deferred_renderer_tpu_torch.ops.sampling, "
+        "d3d12_deferred_renderer_tpu_torch.ops.bump, "
         "d3d12_deferred_renderer_tpu_torch.models.obj; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'d3d12_deferred_renderer_tpu.'))]; "
@@ -127,10 +130,16 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(shadows=True), dict(normal_mapping=True), dict(bloom=True), dict(fxaa=True),
-    dict(deferred_directional=True), dict(inkernel_light_cull=False), dict(supersample=2),
-], ids=lambda c: next(iter(c)))
+    dict(shadows=True), dict(inkernel_light_cull=False),
+    dict(shadows=True, deferred_directional=True, shadow_vis_downsample=2),
+    dict(shadows=True, fused=False, shadow_window_gather=True),
+    dict(shadows=True, fused=False, shadow_bin_tiers=(4, 32, 512, 256, 64, 16, 26112)),
+    dict(supersample=2),
+], ids=lambda c: next(iter(c)) if len(c) == 1 else "_".join(c)[-20:])
 def test_configs_outside_the_slice_raise(change):
+    """Fused shadows without the deferred-directional split, the fused
+    frame without the in-kernel cull, downsampled PCF, the window gather,
+    calibrated shadow tiers and supersampling raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tp.frame.check_ported(dataclasses.replace(TCFG, **change))
 
@@ -138,8 +147,13 @@ def test_configs_outside_the_slice_raise(change):
 @pytest.mark.parametrize("change", [
     dict(shading="lambert"), dict(fused=False), dict(use_pallas=False),
     dict(quantize_gbuffer=False), dict(fused=False, inkernel_light_cull=False),
+    dict(normal_mapping=True), dict(bloom=True), dict(fxaa=True), dict(deferred_directional=True),
+    dict(shadows=True, deferred_directional=True, normal_mapping=True, bloom=True),
+    dict(fused=False, shadows=True, normal_mapping=True, bloom=True, fxaa=True),
 ], ids=lambda c: "_".join(c))
 def test_staged_configs_are_ported(change):
     """The staged frame takes Lambert, the unfused and unquantized PBR
-    frames; the in-kernel cull switch only matters to the fused frame."""
+    frames and the config-4 stack; the fused frame takes the bump, bloom,
+    FXAA and shadows with the deferred-directional split; the in-kernel
+    cull switch only matters to the fused frame."""
     tp.frame.check_ported(dataclasses.replace(TCFG, **change))

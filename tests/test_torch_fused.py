@@ -22,8 +22,9 @@ from d3d12_deferred_renderer_tpu.ops.raster_ref import rasterize_packed as jax_r
 from d3d12_deferred_renderer_tpu.ops.transform import setup_frame_triangles as jax_setup
 
 import d3d12_deferred_renderer_tpu_torch as tp
-from d3d12_deferred_renderer_tpu_torch.ops import fused
+from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting_cuda
 from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
+from d3d12_deferred_renderer_tpu_torch.ops.lighting import inverse_view_proj
 from d3d12_deferred_renderer_tpu_torch.ops.raster_ref import rasterize_packed
 
 BASE = dxr.RendererConfig(
@@ -69,7 +70,9 @@ def _port_frame(state, cfg):
         binned.counts, binned.offs, binned.stream,
         fused.build_light_table(port_state.lights),
         fused.build_material_table(port_state.materials, cfg.gamma),
-        fused.build_uniforms(port_state, tcfg, torch.from_numpy(np.array(view_proj))),
+        lighting_cuda.make_uniforms(port_state.camera.eye, port_state.lights, tcfg,
+                                    inverse_view_proj(torch.from_numpy(np.array(view_proj))),
+                                    cfg.width, cfg.height),
         nty=nty, ntx=ntx, tile_h=cfg.tile_h, tile_w=cfg.tile_w, n_lights=L,
         ik_slots=fused.live_light_slots(tcfg, L), gamma=cfg.gamma,
     )
@@ -131,7 +134,8 @@ def test_wrapper_runs_plain_version_on_cpu():
     binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
     args = (binned.counts, binned.offs, binned.stream, fused.build_light_table(state.lights),
             fused.build_material_table(state.materials, cfg.gamma),
-            fused.build_uniforms(state, cfg, view_proj))
+            lighting_cuda.make_uniforms(state.camera.eye, state.lights, cfg, inverse_view_proj(view_proj),
+                                        cfg.width, cfg.height))
     kw = dict(nty=2, ntx=1, tile_h=8, tile_w=128, n_lights=8,
               ik_slots=fused.live_light_slots(cfg, 8), gamma=cfg.gamma)
     before = fused.fused_tiles.launches

@@ -207,5 +207,7 @@ def test_post_matches_jax():
     jc, tc = jpost.apply_post(jh, CFG), tpost.apply_post(th, TCFG)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=2e-7)
     np.testing.assert_array_equal(tpost.to_uint8(tc).numpy(), np.asarray(jpost.to_uint8(jc)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpost.apply_post(th, dataclasses.replace(TCFG, bloom=True))
+    # Bloom and FXAA are ported too: the same values as the JAX package's.
+    cfg4 = dataclasses.replace(CFG, bloom=True, fxaa=True)
+    jc, tc = jpost.apply_post(jh, cfg4), tpost.apply_post(th, tp.RendererConfig(**dataclasses.asdict(cfg4)))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=2e-7)

@@ -2,8 +2,9 @@
 
     python3 tools/profile_torch_frame.py [--frames 10] [--out chiprun_out/profile]
 
-For each main path of the port (the fused flagship frame, config 1 and the
-staged flagship frame) it warms up, then runs `--frames` step_frame calls
+For each main path of the port (config 1, the fused and the staged
+flagship frame, and config 4 (shadows + bump + bloom, 1024^2 shadow map)
+fused with the deferred-directional split and staged) it warms up, then runs `--frames` step_frame calls
 under torch.profiler and prints one JSON line: ms per frame on the host
 clock around the synchronised window, the device's busy share (the summed
 time of the CUDA kernels and copies over the window), kernel launches,
@@ -32,8 +33,11 @@ def _scenes(tp, dev):
                                     for m in ("cube", "pyramid")])
     yield "config1", tp.REFERENCE_CONFIG, tp.make_scene(geo1, tp.REFERENCE_CONFIG, device=dev)
     geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=24))
-    for label, fused in (("fused_flagship", True), ("staged_flagship", False)):
-        cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=fused)
+    config4 = dict(shadows=True, normal_mapping=True, bloom=True, deferred_directional=True,
+                   inkernel_light_cull=True, max_lights_per_tile=128, shadow_vis_downsample=1)
+    for label, fused, extra in (("fused_flagship", True, {}), ("staged_flagship", False, {}),
+                                ("config4_fused_split", True, config4), ("config4_staged", False, config4)):
+        cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=fused, **extra)
         yield label, cfg, tp.make_scene(
             geo, cfg, lights=tp.random_point_lights(256, cfg=cfg, radius=1.2, device=dev),
             placement="grid", materials=tp.Materials.varied(geo.num_meshes, device=dev), device=dev,
