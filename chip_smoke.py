@@ -57,6 +57,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 14. parity — bench.py's two 256x64 parity blocks ("pbr" and "config4"),
              the fused frame against the staged frame through the kernels:
              mean |du8| <= 1 and at most 2% of pixels more than 4 LSB off.
+15. k2l    — the fused tile kernel fed by per-tile light lists (the depth
+             prepass: the depth-only raster kernel on the frame's binned
+             records, then the light cull) at 1920x1080 on the flagship
+             scene: without a visibility plane, with the unsplit config-4
+             PCF plane, with that plane, bump and linear HDR, and with bump
+             and the split's aux planes; against the plain version (max
+             |du8| <= 1 on < 1% of pixels, zero tile overflow), the prepass
+             depth and the aux depth and mesh-id planes bit-equal to the
+             tile raster kernel's; each variant's ms beside the in-kernel
+             cull's on the same frame.
+16. prepass — one line for each fused frame with the depth prepass through
+             the entry points: the flagship without the in-kernel cull, and
+             config 4 without the split or the in-kernel cull (the
+             visibility plane): the sweep (overflow 0), launches (the depth
+             raster once a frame for the prepass and once for the shadow
+             map), the last frame against its plain chain, the timing.
+17. calibrate — autotune_shadow on the split config 4 and autotune on the
+             colonnade scene (the fused flagship config), as
+             tools/bench_configs.py runs them: the derived tiers or budgets
+             and their sort keys, then the calibrated config's 16-step
+             sweep (overflow 0), launches and timing; the calibrated shadow map
+             equal to the default tiers', the colonnade frame against its
+             plain chain.
+18. k9     — the row scatter kernel against its plain version (bit-equal) at
+             n = 4096, 8192 (the TPU tool's sizes) and the flagship binning's
+             sort-key count: ms, ns/row, the plain version's and one
+             index_copy_'s ms, the bound, and torch.sort's ns/key at the
+             same count.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and the
 last line {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
@@ -92,6 +120,30 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call of fn: `reps` calls captured in one CUDA
+    graph and replayed, so the host's per-call cost (argument checks,
+    allocation, the launch itself) drops out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -179,6 +231,10 @@ RESOLVE_OPS_PER_PIXEL = 100  # world from depth + view + directional GGX
 # in-kernel light cull, full-resolution PCF.
 CONFIG4_FLAGS = dict(shadows=True, normal_mapping=True, bloom=True, deferred_directional=True,
                      inkernel_light_cull=True, max_lights_per_tile=128, shadow_vis_downsample=1)
+# The shipped unsplit config-4 rows of the JAX package's tools: the config-4
+# flags without the split and without the in-kernel cull (the depth
+# prepass, per-tile light lists, the visibility plane in the tile kernel).
+CONFIG4_UNSPLIT_FLAGS = {**CONFIG4_FLAGS, "deferred_directional": False, "inkernel_light_cull": False}
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -300,18 +356,34 @@ def staged_plain_chain(state, cfg, shade: bool = True):
     return frame, overflow, tl
 
 
+def prepass_lists(depth_pre, state, cfg, view_proj, inv_vp):
+    """The per-tile light lists of the depth prepass: the light cull on the
+    tile grid, capped at min(L, max_live_lights_per_tile), the id lists
+    padded to CHUNK -> (ids [NT, Lk], counts [NT], overflow)."""
+    from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting
+
+    L = state.lights.num_point
+    tl = lighting.cull_lights_to_tiles(depth_pre, state.lights, cfg, view_proj, tile=(cfg.tile_h, cfg.tile_w),
+                                       max_per_tile=min(L, cfg.max_live_lights_per_tile), inv_vp=inv_vp)
+    NT = tl.counts.numel()
+    return fused.pad_light_ids_to_chunk(tl.indices.reshape(NT, -1)), tl.counts.reshape(-1), tl.overflow
+
+
 def fused_plain_chain(state, cfg):
     """The fused frame by the plain versions on the card: plain setup,
-    binning, the plain tile renderer and, with the split, the plain shadow
-    map, PCF and plain resolve.  Returns (uint8 frame, overflow, the tile
-    renderer's planes)."""
-    from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting, lighting_cuda
+    binning, [the plain depth prepass, the light cull, and without the
+    split the plain shadow map + PCF], the plain tile renderer and, with
+    the split, the plain shadow map, PCF and plain resolve.  Returns (uint8
+    frame, overflow, the tile renderer's planes)."""
+    import torch.nn.functional as F
+    from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting, lighting_cuda, raster_tiles, shadows
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.transform import (
         frame_matrices, setup_triangles_reference,
     )
 
     H, W, TH, TW = cfg.height, cfg.width, cfg.tile_h, cfg.tile_w
+    nty, ntx = -(-H // TH), -(-W // TW)
     model, view_proj, mvp = frame_matrices(state, cfg)
     inv_vp = lighting.inverse_view_proj(view_proj)
     g = state.geometry
@@ -322,22 +394,53 @@ def fused_plain_chain(state, cfg):
     L = li.num_point
     mats = fused.build_material_table(state.materials, cfg.gamma)
     u = lighting_cuda.make_uniforms(state.camera.eye, li, cfg, inv_vp, W, H)
+    ik = cfg.inkernel_light_cull and L > 0
     split = cfg.deferred_directional and cfg.shadows
+    overflow = binned.overflow
+    depth_pre = ids = counts = vis = None
+    if (L and not ik) or (cfg.shadows and not split):
+        depth_pre = raster_tiles.raster_depth_reference(binned.counts, binned.offs, binned.stream,
+                                                        nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)[:H, :W]
+    if L and not ik:
+        ids, counts, l_ovf = prepass_lists(depth_pre, state, cfg, view_proj, inv_vp)
+        overflow = overflow + l_ovf
+    if cfg.shadows:
+        sd, lvp, s_ovf = shadow_plain(state, cfg)
+        overflow = overflow + s_ovf
+        if not split:
+            vis, v_ovf = shadows.shadow_visibility(depth_pre, view_proj, sd, lvp, cfg, return_overflow=True,
+                                                   inv_vp=inv_vp)
+            overflow = overflow + v_ovf
+            vis = F.pad(vis, (0, ntx * TW - W, 0, nty * TH - H), value=1.0)
     out, tovf = fused.fused_tiles_reference(
         binned.counts, binned.offs, binned.stream, fused.build_light_table(li), mats, u,
-        nty=-(-H // TH), ntx=-(-W // TW), tile_h=TH, tile_w=TW, n_lights=L,
+        nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, n_lights=L,
         ik_slots=fused.live_light_slots(cfg, L), gamma=cfg.gamma,
         bump=(cfg.bump_strength, cfg.bump_frequency) if cfg.normal_mapping else None,
-        hdr_out=cfg.bloom or split, aux=split,
+        hdr_out=cfg.bloom or split, aux=split, light_ids=ids, light_counts=counts, vis=vis,
     )
-    overflow = binned.overflow + tovf.sum()
+    overflow = overflow + tovf.sum()
     color = out[:3]
     if split:
-        sd, lvp, s_ovf = shadow_plain(state, cfg)
         vis, v_ovf = fused.split_visibility(out, view_proj, sd, lvp, cfg, u, inv_vp)
-        overflow = overflow + s_ovf + v_ovf
+        overflow = overflow + v_ovf
         color = fused.directional_resolve_reference(out, vis, mats, u)
     return fused.finish_frame(color, cfg, hdr=cfg.bloom or split), overflow, out
+
+
+def binning_sort_keys(cfg, n_records: int) -> int:
+    """The (tile, triangle) keys the sort path of ops/binning.bin_triangles
+    sorts each frame: every tier's budget times its rect expansion, and the
+    big tier times the tile grid."""
+    nty, ntx = -(-cfg.height // cfg.tile_h), -(-cfg.width // cfg.tile_w)
+    NT, T = nty * ntx, n_records
+    s = max(1, round((cfg.height * cfg.width) / (1920 * 1080)))
+    E = max(1, cfg.bin_expand * s)
+    EM = max(E + 1, cfg.bin_expand_medium * s)
+    EL = max(EM + 1, cfg.bin_expand_large * s)
+    LS = T if cfg.bin_max_small < 0 else min(cfg.bin_max_small * s, T)
+    keys = LS * E + min(cfg.bin_max_medium * s, T) * EM + min(cfg.bin_max_large * s, T) * EL
+    return keys + (min(cfg.bin_max_big * s, T) * NT if EL < NT else 0)
 
 
 def drive_path(tp, state, cfg, kernels, sweep_steps: int = 64):
@@ -395,7 +498,7 @@ def main() -> int:
     import d3d12_deferred_renderer_tpu_torch as tp
     from d3d12_deferred_renderer_tpu_torch import xmath
     from d3d12_deferred_renderer_tpu_torch.ops import (
-        bump, fused, lighting, lighting_cuda, post, raster_tiles, setup_cuda, shadows,
+        bump, fused, lighting, lighting_cuda, post, raster_tiles, scatter, setup_cuda, shadows,
     )
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.transform import (
@@ -408,7 +511,7 @@ def main() -> int:
     check("jax" not in sys.modules, "the port imported jax")
     wrappers = (setup_cuda.setup_triangles, fused.fused_tiles, raster_tiles.raster_tiles,
                 lighting_cuda.shade_tiles, setup_cuda.setup_depth_triangles, raster_tiles.raster_depth,
-                bump.bump_tiles, fused.directional_resolve)
+                bump.bump_tiles, fused.directional_resolve, scatter.row_scatter)
     no_launch = {k.__name__: 0 for k in wrappers}
 
     # ---- 1. build ----
@@ -451,11 +554,12 @@ def main() -> int:
     k1_err = float((gp - rp).abs().max())
     k1_ms = cuda_ms(lambda: setup_cuda.setup_triangles(*k1_args), 200)
     k1_plain_ms = cuda_ms(lambda: setup_triangles_reference(*k1_args), 20)
+    k1_dev_ms = graph_ms(lambda: setup_cuda.setup_triangles(*k1_args), 50)
     emit({
         "phase": "k1", "ok": True, "records": int(gp.shape[0]),
         "valid": int(got.valid.sum()), "bit_equal_frac": float(exact.double().mean()),
         "max_abs_err": k1_err, "aabb_max_abs_err": float((got.aabb - ref.aabb).abs().max()),
-        "ms": k1_ms, "plain_ms": k1_plain_ms,
+        "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
     })
     M = mvp.shape[0]
     k1_bytes = T * (36 + 36 + 24 + 4) + 2 * M * 64 + 2 * T * (32 * 4 + 16)
@@ -464,7 +568,7 @@ def main() -> int:
         source="d3d12_deferred_renderer_tpu_torch/csrc/setup.cu",
         replaces="d3d12_deferred_renderer_tpu/ops/setup_pallas.py:254",
         max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
-        **bound(k1_bytes, T * SETUP_OPS_PER_TRIANGLE), library_ms=None,
+        **bound(k1_bytes, T * SETUP_OPS_PER_TRIANGLE), library_ms=None, device_ms=k1_dev_ms,
     )
 
     # ---- 3. K2 against its plain version, small and full size ----
@@ -639,16 +743,17 @@ def main() -> int:
     check(not bool(got.packed[:, 12:27].any()), "K4 attribute fields not zero")
     k4_ms = cuda_ms(lambda: setup_cuda.setup_depth_triangles(*k4_args), 200)
     k4_plain_ms = cuda_ms(lambda: setup_depth_reference(*k4_args), 20)
+    k4_dev_ms = graph_ms(lambda: setup_cuda.setup_depth_triangles(*k4_args), 50)
     k4_bytes = T * (36 + 4) + M * 64 + 2 * T * (32 * 4 + 16)
     emit({"phase": "k4", "ok": True, "records": int(got.packed.shape[0]), "valid": int(got.valid.sum()),
-          "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": k4_plain_ms,
+          "max_abs_err": 0.0, "ms": k4_ms, "device_ms": k4_dev_ms, "plain_ms": k4_plain_ms,
           **bound(k4_bytes, T * SETUP_DEPTH_OPS_PER_TRIANGLE)})
     kernels["setup_depth"] = dict(
         name="setup_depth_triangles", route="cuda",
         source="d3d12_deferred_renderer_tpu_torch/csrc/setup.cu",
         replaces="d3d12_deferred_renderer_tpu/ops/setup_pallas.py:281",
         max_abs_err=0.0, ms=k4_ms, plain_ms=k4_plain_ms,
-        **bound(k4_bytes, T * SETUP_DEPTH_OPS_PER_TRIANGLE), library_ms=None,
+        **bound(k4_bytes, T * SETUP_DEPTH_OPS_PER_TRIANGLE), library_ms=None, device_ms=k4_dev_ms,
     )
 
     # ---- 7. K3: the 1024^2 shadow map on 16 x 128 tiles; the display grid ----
@@ -700,6 +805,7 @@ def main() -> int:
     check(moved > 0.1, f"K8 perturbed only {moved} of the pixels")
     k8_ms = cuda_ms(lambda: bump.bump_tiles(*bargs, **bkw), 100)
     k8_plain_ms = cuda_ms(lambda: bump.bump_tiles_reference(*bargs, **bkw), 5)
+    k8_dev_ms = graph_ms(lambda: bump.bump_tiles(*bargs, **bkw), 50)
     # The bytes the function needs: the mesh id and the normal at every
     # pixel (a background or out-of-frame pixel keeps its normal), depth, u
     # and v at covered in-frame pixels only (padding has mesh id -1), the
@@ -710,11 +816,11 @@ def main() -> int:
     k8_bound = bound(k8_bytes, cov8 * BUMP_OPS_PER_PIXEL)
     emit({"phase": "k8", "ok": True, "max_abs_err": k8_err,
           "bit_equal_frac": float((bn == pbn).double().mean()), "perturbed_frac": moved,
-          "covered_pixels": cov8, "ms": k8_ms, "plain_ms": k8_plain_ms, **k8_bound})
+          "covered_pixels": cov8, "ms": k8_ms, "device_ms": k8_dev_ms, "plain_ms": k8_plain_ms, **k8_bound})
     kernels["bump"] = dict(
         name="bump_tiles", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/bump.cu",
         replaces="d3d12_deferred_renderer_tpu/ops/bump.py:196",
-        max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain_ms, **k8_bound, library_ms=None,
+        max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain_ms, **k8_bound, library_ms=None, device_ms=k8_dev_ms,
     )
     del bplanes, bargs, bn, pbn
 
@@ -758,20 +864,91 @@ def main() -> int:
     k5_err = float((rhdr - prhdr).abs().max())
     k5_ms = cuda_ms(lambda: fused.directional_resolve(*rargs), 100)
     k5_plain_ms = cuda_ms(lambda: fused.directional_resolve_reference(*rargs), 5)
+    k5_dev_ms = graph_ms(lambda: fused.directional_resolve(*rargs), 50)
     # The bytes the function needs: depth and the HDR at every pixel, the
     # normal, mesh id and visibility at covered pixels, the HDR out.
     cov5 = int((out4[3] < 1.0).sum())
     k5_bytes = 4 * (4 * out4[3].numel() + 5 * cov5 + 3 * out4[3].numel() + 64 + 32)
     emit({"phase": "k5", "ok": True, "max_abs_err": k5_err, "bit_equal_frac": float((rhdr == prhdr).double().mean()),
-          "covered_pixels": cov5, "ms": k5_ms, "plain_ms": k5_plain_ms,
+          "covered_pixels": cov5, "ms": k5_ms, "device_ms": k5_dev_ms, "plain_ms": k5_plain_ms,
           **bound(k5_bytes, cov5 * RESOLVE_OPS_PER_PIXEL), **st})
     kernels["resolve"] = dict(
         name="directional_resolve", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/resolve.cu",
         replaces="d3d12_deferred_renderer_tpu/ops/fused.py:445",
         max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms,
-        **bound(k5_bytes, cov5 * RESOLVE_OPS_PER_PIXEL), library_ms=None,
+        **bound(k5_bytes, cov5 * RESOLVE_OPS_PER_PIXEL), library_ms=None, device_ms=k5_dev_ms,
     )
-    del out4, pout4, rhdr, prhdr, rargs, args, vis4, sd4
+    del out4, pout4, rhdr, prhdr, rargs, args, vis4
+
+    # ---- 11. K2 fed by the depth prepass's per-tile light lists ----
+    lcfg = dataclasses.replace(cfg, inkernel_light_cull=False)
+    args, kw, binned = k2_inputs(tp, state, lcfg)
+    grid = {k: kw[k] for k in ("nty", "ntx", "tile_h", "tile_w")}
+    bargs = (binned.counts, binned.offs, binned.stream)
+    depth_pre = raster_tiles.raster_depth(*bargs, **grid)
+    kplanes = raster_tiles.raster_tiles(*bargs, **grid)
+    check(torch.equal(depth_pre, kplanes[raster_tiles.PLANE_DEPTH]), "prepass depth differs from K6's depth plane")
+    ids, counts, l_ovf = prepass_lists(depth_pre[:H, :W], state, lcfg, view_proj, inv_vp)
+    c4u = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True, **CONFIG4_UNSPLIT_FLAGS)
+    vis_u, v_ovf = shadows.shadow_visibility(depth_pre[:H, :W], view_proj, sd4, lvp4, c4u, return_overflow=True,
+                                             inv_vp=inv_vp)
+    vis_u = torch.nn.functional.pad(vis_u, (0, ntx * TW - W, 0, nty * TH - H), value=1.0)
+    check(int(l_ovf) == 0 and int(v_ovf) == 0, f"prepass lists or PCF overflow: {int(l_ovf)}, {int(v_ovf)}")
+    bump4 = (cfg4.bump_strength, cfg4.bump_frequency)
+    lkw = dict(kw, ik_slots=0, light_ids=ids, light_counts=counts)
+    k2l_variants = {
+        "lists": lkw,
+        "lists+vis": dict(lkw, vis=vis_u),
+        "lists+vis+bump+hdr_out": dict(lkw, vis=vis_u, bump=bump4, hdr_out=True),
+        "lists+bump+aux": dict(lkw, bump=bump4, aux=True),
+    }
+    P = TH * TW
+    cov_l = per_tile_covered(depth_pre, TH, TW)
+    pairs = int(binned.counts.sum())
+    live_pairs = int((cov_l * counts).sum())
+    k2l_ops = (pairs * P * RASTER_OPS_PER_RECORD_PIXEL + int(cov_l.sum()) * SHADE_OPS_PER_PIXEL
+               + live_pairs * SHADE_OPS_PER_PIXEL_LIGHT)
+    ik_ms = cuda_ms(lambda: fused.fused_tiles(*args, **kw), 50)
+    k2l_ms = {}
+    for label, vkw in k2l_variants.items():
+        lout, lovf = fused.fused_tiles(*args, **vkw)
+        plout, plovf = fused.fused_tiles_reference(*args, **vkw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(lout).all()), f"K2 {label} produced non-finite values")
+        check(torch.equal(lovf, plovf) and not bool(lovf.any()), f"K2 {label} tile overflow not 0")
+        hdr = vkw.get("hdr_out") or vkw.get("aux")
+        img = [o[:3, :H, :W] for o in (lout, plout)]
+        if hdr:
+            img = [post.gamma_encode(post.reinhard(o), cfg.gamma) for o in img]
+        st = frame_stats(*(u8(o).permute(1, 2, 0) for o in img))
+        check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"K2 {label} frame off: {st}")
+        line = {"phase": "k2l", "ok": True, "variant": label, "max_abs_err": float((lout - plout).abs().max()),
+                "bit_equal_frac": float((lout == plout).double().mean()), **st}
+        if vkw.get("aux"):
+            check(torch.equal(lout[3], kplanes[raster_tiles.PLANE_DEPTH])
+                  and torch.equal(lout[7], kplanes[raster_tiles.PLANE_MID]), f"K2 {label}: depth or mesh id != K6's")
+            aux_err = float((lout[3:8] - plout[3:8]).abs().max())
+            check(aux_err == 0.0, f"K2 {label} aux planes off the plain version's by {aux_err}")
+            line["aux_depth_mid_bit_equal_to_k6"] = True
+        line["ms"] = k2l_ms[label] = cuda_ms(lambda: fused.fused_tiles(*args, **vkw), 50)
+        # The bytes the function needs: the in-kernel cull's, plus the lists
+        # and counts and, with it, the visibility plane; the same operations
+        # over this frame's live pixel-light pairs.
+        k2l_bytes = (pairs * 128 + 4 * (2 * NT + 1) + 4 * (args[3].numel() + args[4].numel() + args[5].numel())
+                     + 4 * (ids.numel() + NT) + (4 * vis_u.numel() if "vis" in vkw else 0)
+                     + 4 * lout.numel() + 4 * NT)
+        line.update(bound(k2l_bytes, k2l_ops))
+        if label == "lists":
+            line["plain_ms"] = cuda_ms(lambda: fused.fused_tiles_reference(*args, **vkw), 2)
+            line["in_kernel_cull_ms"] = ik_ms
+            line["lists_shape"] = list(ids.shape)
+            line["max_live_lights_in_a_tile"] = int(counts.max())
+            line["live_pixel_light_pairs"] = live_pairs
+            kernels["fused"]["list_fed"] = dict(ms=line["ms"], plain_ms=line["plain_ms"], in_kernel_cull_ms=ik_ms,
+                                                **bound(k2l_bytes, k2l_ops))
+        emit(line)
+    kernels["fused"]["variants_ms"] = k2l_ms
+    del args, lout, plout, kplanes, depth_pre, vis_u, sd4
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t_start})
 
     total_launches = {k.__name__: 0 for k in wrappers}
@@ -906,6 +1083,92 @@ def main() -> int:
         })
         emit(line)
 
+    # ---- 16. the fused frame with the depth prepass: the flagship without
+    # the in-kernel cull, config 4 without the split (the visibility plane) ----
+    for label, pcfg in (
+        ("fused_listfed", dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True, inkernel_light_cull=False)),
+        ("config4_fused_unsplit", dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True, **CONFIG4_UNSPLIT_FLAGS)),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        sstate, sframe, frames, launches, _, sweep_ovf, passes = drive_path(tp, state0, pcfg, wrappers)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        expect = {**no_launch, "setup_triangles": frames, "raster_depth": frames, "fused_tiles": frames}
+        if pcfg.shadows:  # the shadow map: depth-only setup and a second depth raster
+            expect.update(setup_depth_triangles=frames, raster_depth=2 * frames)
+        check(launches == expect, f"{label}: launch counts {launches}, expected {expect}")
+        for k, n in launches.items():
+            total_launches[k] += n
+        check(max(sweep_ovf) == 0, f"{label}: overflow {max(sweep_ovf)} on the orbit sweep")
+        covered = float((sframe.amax(-1) > 0).double().mean())
+        check(covered > 0.2, f"{label}: frame nearly blank ({covered})")
+        st = frame_stats(sframe, fused_plain_chain(sstate, pcfg)[0])
+        check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"{label}: frame vs plain chain: {st}")
+        best = min(p[0] for p in passes)
+        emit({"phase": "prepass", "ok": True, "config": label, "resolution": f"{pcfg.width}x{pcfg.height}",
+              "triangles": T, "lights": sstate.lights.num_point, "frames": frames,
+              "launches": {k: n for k, n in launches.items() if n},
+              "launches_per_frame": {k: n / frames for k, n in launches.items() if n},
+              "sweep_steps": len(sweep_ovf), "sweep_max_overflow": max(sweep_ovf), "covered_frac": covered,
+              "vs_plain_chain": st, "ms_per_frame": best, "fps": 1e3 / best,
+              "passes_device_ms": [p[0] for p in passes], "passes_host_ms": [p[1] for p in passes],
+              "peak_mem_mib": peak_mib})
+
+    # ---- 17. calibrate: autotune_shadow on the split config 4, autotune on
+    # the colonnade scene (tools/bench_configs.py's two calibrated rows) ----
+    c4 = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True, **CONFIG4_FLAGS)
+    cgeo = tp.build_scene_geometry(tp.procedural.colonnade_meshes())
+    ccfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True)
+    cstate0 = tp.make_scene(
+        cgeo, ccfg, lights=tp.random_point_lights(256, cfg=ccfg, radius=1.2, device=dev), placement="origin",
+        materials=tp.Materials.varied(cgeo.num_meshes, device=dev), device=dev)
+    for label, tune, tcfg, tstate0 in (("config4_autotune_shadow", tp.autotune_shadow, c4, state0),
+                                      ("colonnade_autotune", tp.autotune, ccfg, cstate0)):
+        t0 = time.perf_counter()
+        cal, rep = tune(tstate0, tcfg)
+        tune_s = time.perf_counter() - t0
+        n_rec = 2 * int(tstate0.geometry.tri_mesh_id.numel())
+        line = {"phase": "calibrate", "ok": True, "config": label, "tune_seconds": tune_s,
+                "triangles": n_rec // 2, "report": rep}
+        if label == "config4_autotune_shadow":
+            scfg_def = shadows.shadow_bin_config(tcfg, n_rec // 2)
+            scfg_cal = shadows.shadow_bin_config(cal, n_rec // 2)
+            line["sort_keys"] = {"default_tiers": binning_sort_keys(scfg_def, n_rec),
+                                 "calibrated": binning_sort_keys(scfg_cal, n_rec)}
+            # The calibrated tiers bin the same records: the same shadow map.
+            sd_def, _ = shadows.render_shadow_map(tstate0, tcfg)
+            sd_cal, _ = shadows.render_shadow_map(tstate0, cal)
+            check(torch.equal(sd_def, sd_cal), f"{label}: calibrated shadow map differs from the default tiers'")
+            expect_k = {"setup_triangles": 1, "setup_depth_triangles": 1, "raster_depth": 1, "fused_tiles": 1,
+                        "directional_resolve": 1}
+        else:
+            line["sort_keys"] = {"flagship_tiers": binning_sort_keys(tcfg, n_rec),
+                                 "calibrated": binning_sort_keys(cal, n_rec)}
+            expect_k = {"setup_triangles": 1, "fused_tiles": 1}
+        print(f"{label}: {json.dumps(rep)}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        # A 16-step sweep keeps the script's time down; the prepass paths
+        # above sweep the whole 64.
+        sstate, sframe, frames, launches, _, sweep_ovf, passes = drive_path(tp, tstate0, cal, wrappers,
+                                                                            sweep_steps=16)
+        expect = {**no_launch, **{k: n * frames for k, n in expect_k.items()}}
+        check(launches == expect, f"{label}: launch counts {launches}, expected {expect}")
+        for k, n in launches.items():
+            total_launches[k] += n
+        check(max(sweep_ovf) == 0, f"{label}: overflow {max(sweep_ovf)} on the orbit sweep")
+        covered = float((sframe.amax(-1) > 0).double().mean())
+        check(covered > 0.2, f"{label}: frame nearly blank ({covered})")
+        if label == "colonnade_autotune":
+            st = frame_stats(sframe, fused_plain_chain(sstate, cal)[0])
+            check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"{label}: frame vs plain chain: {st}")
+            line["vs_plain_chain"] = st
+        best = min(p[0] for p in passes)
+        line.update({"frames": frames, "launches_per_frame": {k: n / frames for k, n in launches.items() if n},
+                     "sweep_steps": len(sweep_ovf), "sweep_max_overflow": max(sweep_ovf), "covered_frac": covered,
+                     "ms_per_frame": best, "fps": 1e3 / best, "passes_device_ms": [p[0] for p in passes],
+                     "passes_host_ms": [p[1] for p in passes],
+                     "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20})
+        emit(line)
+
     # ---- 14. bench.py's parity blocks: fused against staged at 256x64 ----
     pgeo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4))
     parity = {}
@@ -923,6 +1186,43 @@ def main() -> int:
         check(st["mean_abs_u8"] <= 1.0 and st["frac_gt_4lsb"] <= 0.02, f"parity {pname}: {st}")
     emit({"phase": "parity", "ok": True, "size": "256x64", **parity})
 
+    # ---- 18. K9: the row scatter, at the TPU tool's sizes and at the
+    # flagship binning's sort-key count ----
+    n_keys = binning_sort_keys(cfg, 2 * T)
+    k9_launches = 0
+    for n in (4096, 8192, n_keys):
+        gen = torch.Generator().manual_seed(n)
+        idx = torch.randperm(n, generator=gen).to(torch.int32).to(dev)
+        val = torch.randint(0, 1 << 30, (n, 128), generator=gen, dtype=torch.int32).to(dev)
+        got = scatter.row_scatter(idx, val)
+        ref = scatter.row_scatter_reference(idx, val)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K9 differs from its plain version at n = {n}")
+        # The scatter's own run: launches counted from 0 over the timing.
+        # call_ms times calls back to back (the wrapper's host work
+        # included); ms replays them from a CUDA graph (device time).
+        scatter.row_scatter.launches = 0
+        k9_call_ms = cuda_ms(lambda: scatter.row_scatter(idx, val), 200)
+        k9_launches += scatter.row_scatter.launches
+        check(scatter.row_scatter.launches == 201, f"K9 launches {scatter.row_scatter.launches} != 201")
+        out, idx_l = torch.empty_like(val), idx.long()
+        keys = torch.randint(0, 1 << 40, (n,), generator=gen, dtype=torch.int64).to(dev)
+        fns = {"kernel": lambda: scatter.row_scatter(idx, val),
+               "plain": lambda: scatter.row_scatter_reference(idx, val),
+               "index_copy_": lambda: out.index_copy_(0, idx_l, val), "sort": lambda: torch.sort(keys)}
+        dev_ms = {k: graph_ms(f, 50) for k, f in fns.items()}
+        k9_ms, k9_plain_ms, k9_lib_ms = dev_ms["kernel"], dev_ms["plain"], dev_ms["index_copy_"]
+        k9_bound = bound(2 * n * 512 + 4 * n, 0)
+        emit({"phase": "k9", "ok": True, "rows": n, "bit_equal": True, "ms": k9_ms, "ns_per_row": k9_ms * 1e6 / n,
+              "call_ms": k9_call_ms, "plain_ms": k9_plain_ms, "library_ms": k9_lib_ms, "library": "index_copy_",
+              "torch_sort_int64_ms": dev_ms["sort"], "torch_sort_ns_per_key": dev_ms["sort"] * 1e6 / n,
+              "timing": "device ms per call, 50 calls replayed from one CUDA graph", **k9_bound})
+    kernels["scatter"] = dict(
+        name="row_scatter", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/scatter.cu",
+        replaces="tools/ubench_pallas_scatter.py:39", launches=k9_launches, max_abs_err=0.0, ms=k9_ms,
+        device_ms=k9_ms, plain_ms=k9_plain_ms, **k9_bound, library_ms=k9_lib_ms, rows=n_keys,
+    )
+
     for key, name in (("setup", "setup_triangles"), ("fused", "fused_tiles"),
                       ("raster", "raster_tiles"), ("shade", "shade_tiles"),
                       ("setup_depth", "setup_depth_triangles"), ("raster_depth", "raster_depth"),
@@ -938,8 +1238,10 @@ def main() -> int:
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kernels[n][k] for k in keys} for n in (
-        "setup", "fused", "raster", "shade", "setup_depth", "raster_depth", "bump", "resolve")]})
+    extra = ("device_ms", "list_fed", "variants_ms", "rows")
+    emit({"kernels": [{**{k: kernels[n][k] for k in keys}, **{k: kernels[n][k] for k in extra if k in kernels[n]}}
+                      for n in ("setup", "fused", "raster", "shade", "setup_depth", "raster_depth", "bump",
+                                "resolve", "scatter")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

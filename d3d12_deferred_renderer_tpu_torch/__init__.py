@@ -6,13 +6,16 @@ PyTorch, with the TPU kernels rewritten by hand in CUDA C++ for Hopper
 frame (scene + animation -> triangle setup -> binning -> fused tile renderer
 -> uint8) and the staged frame (triangle setup -> binning -> tile raster ->
 G-buffer -> Lambert, or light cull + G-buffer lighting -> tonemap -> uint8),
-each with the config-4 stack (shadow map, procedural bump, bloom, FXAA;
-the fused frame's shadows through the deferred-directional split), through
-hand-written kernels; frame.check_ported says which configs raise
-NotImplementedError.  Scenes live on the CUDA device unless the caller
+each with the config-4 stack (shadow map, procedural bump, bloom, FXAA),
+through hand-written kernels; the fused frame culls lights in its kernel or
+takes per-tile lists from a depth prepass, and takes shadows as a
+visibility plane or through the deferred-directional split.  calibrate
+derives a scene's capacity budgets.  frame.check_ported says which configs
+raise NotImplementedError.  Scenes live on the CUDA device unless the caller
 passes device="cpu"; a CUDA kernel runs for tensors on a CUDA device, its
 plain PyTorch version for tensors on the CPU.
 """
+from .calibrate import autotune, autotune_shadow
 from .config import FLAGSHIP_CONFIG, REFERENCE_CONFIG, RendererConfig
 from .convert import arrays_from_state, scene_from_arrays
 from .frame import render, render_gbuffer, render_stats, step_frame
@@ -34,6 +37,8 @@ __all__ = [
     "RendererConfig",
     "REFERENCE_CONFIG",
     "FLAGSHIP_CONFIG",
+    "autotune",
+    "autotune_shadow",
     "render",
     "render_stats",
     "render_gbuffer",

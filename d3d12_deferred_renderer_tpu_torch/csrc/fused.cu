@@ -1,17 +1,20 @@
-// Fused tile renderer: raster -> in-kernel light cull -> G-buffer quantize ->
-// PBR shading -> tonemap, one block per screen tile.
+// Fused tile renderer: raster -> light cull or per-tile light lists ->
+// G-buffer quantize -> PBR shading -> tonemap, one block per screen tile.
 //
 // Replaces the TPU mono-kernel d3d12_deferred_renderer_tpu/ops/fused.py:
 // _fused_kernel (helpers raster_pallas._chunk_raster, fused._shade_row,
-// fused._world_from_depth, bump.bump_planar) with in-kernel light culling:
-// the flagship branch and the config-4 variants, as template switches:
-// kBump (uv joins the raster and bump.cuh perturbs the raw normals before
-// the G-buffer quantization), kAux (the deferred-directional split: no
-// directional term, and the depth, decoded normal and mesh-id planes out),
-// and at run time hdr_out (linear HDR out: no tonemap or gamma; implied by
-// kAux).  Its plain PyTorch version is ops/fused.py:fused_tiles_reference,
-// and the arithmetic below follows it operation for operation, in the same
-// association order.
+// fused._world_from_depth, bump.bump_planar): the flagship branch and the
+// config-4 variants, as template switches: kBump (uv joins the raster and
+// bump.cuh perturbs the raw normals before the G-buffer quantization), kAux
+// (the deferred-directional split: no directional term, and the depth,
+// decoded normal and mesh-id planes out), kLists (the per-tile light lists
+// of the depth prepass and lighting.cull_lights_to_tiles replace the
+// in-kernel cull: fused.py:622-648, the kernel without ik_slots), and at run
+// time hdr_out (linear HDR out: no tonemap or gamma; implied by kAux) and
+// the shadow-visibility plane (has_vis, fused.py:203-205 and :379: vis
+// multiplies the directional term; null when absent).  Its plain PyTorch
+// version is ops/fused.py:fused_tiles_reference, and the arithmetic below
+// follows it operation for operation, in the same association order.
 //
 // One block of 256 threads per tile (up to 1024 pixels, 8 x 128 in the
 // flagship config); thread tid owns pixels tid + 256 * j, j < 4, so a warp
@@ -22,19 +25,26 @@
 //    [offs[t], offs[t] + counts[t]) of the record stream comes through
 //    shared memory in chunks of 64 records, rasterized in submission order
 //    with a strict z < depth test.
-// 3. Cull.  Block min/max reductions give the split distance and the two
-//    slabs' world AABBs (min and max are exact, so the order of reduction
-//    does not matter).  Each thread tests lights tid, tid + 256, ...; a warp
-//    ballot, __popc and a scan over the 8 warps compact the live ids in
-//    ascending order into shared memory, together with their light rows.
+// 3. Lights.  In-kernel cull: block min/max reductions give the split
+//    distance and the two slabs' world AABBs (min and max are exact, so the
+//    order of reduction does not matter).  Each thread tests lights tid,
+//    tid + 256, ...; a warp ballot, __popc and a scan over the 8 warps
+//    compact the live ids in ascending order into shared memory, together
+//    with their light rows.  With kLists the block loads its tile's first
+//    counts[t] ids of its row of the lists instead (the G-buffer lighting
+//    kernel's load, shade.cu): the count is clamped to the row's length Lk
+//    and each id to the light table, so a bad list cannot read outside its
+//    arrays, and the tile overflow is 0 (the cull counts its own).
 // 4. Shade.  Per pixel: material by mesh id, 10-bit normal round trip,
 //    then shade.cuh (shared with the G-buffer lighting kernel, shade.cu):
-//    ambient + directional GGX + the point-light GGX loop over the live
-//    lights; then Reinhard, gamma.  Output [3, Hp, Wp] f32.
+//    ambient + directional GGX (x visibility) + the point-light GGX loop
+//    over the live lights; then Reinhard, gamma.  Output [3, Hp, Wp] f32.
 //
 // Bound: compute.  The GGX loop runs once per covered pixel and live light
 // (about 100 flops each, with a divide-heavy tail); the stream segment, the
-// light rows and the output are a few MB per 1080p frame.
+// light rows and the output are a few MB per 1080p frame.  The lists add
+// NT x Lk x 4 bytes (2040 x 128 x 4 = 1 MB at 1080p) and the visibility
+// plane Hp x Wp x 4 (8.4 MB), read once each.
 
 #include "bump.cuh"
 #include "raster.cuh"
@@ -79,14 +89,19 @@ __device__ void block_minmax(float (&vals)[2 * NP], float (*s_red)[12], float* o
   __syncthreads();
 }
 
-template <bool kBump, bool kAux>
+// n_lights: the point lights the cull tests, or with kLists the rows of
+// the light table.  slots: the compaction slots (ik_slots), or with kLists
+// the length Lk of each tile's row of light_ids.
+template <bool kBump, bool kAux, bool kLists>
 __global__ void __launch_bounds__(kThreads)
 fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                   const float* __restrict__ stream, const float* __restrict__ lights,
                   int n_lights, const float* __restrict__ mats, int n_mats,
                   const float* __restrict__ uniforms, int ntx, int tile_h, int tile_w,
-                  int ik_slots, float inv_gamma, float strength, float w2pf, bool hdr_out,
-                  float* __restrict__ color, int Hp, int Wp, int* __restrict__ tile_overflow) {
+                  const int* __restrict__ light_ids, const int* __restrict__ light_counts,
+                  int slots, const float* __restrict__ vis, float inv_gamma, float strength,
+                  float w2pf, bool hdr_out, float* __restrict__ color, int Hp, int Wp,
+                  int* __restrict__ tile_overflow) {
   __shared__ float4 s_rec4[kChunk * kStride / 4];
   __shared__ float s_bump[kBump ? bump::kPlanes * kThreads * kPix : 1];
   __shared__ float s_u[32];
@@ -94,8 +109,8 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   __shared__ float s_bounds[12];
   __shared__ int s_warp[kWarps];
   extern __shared__ float s_dyn[];
-  float* s_lrow = s_dyn;                                // [ik_slots][8] live light rows
-  int* s_ids = reinterpret_cast<int*>(s_dyn + 8 * ik_slots);  // [ik_slots]
+  float* s_lrow = s_dyn;                                   // [slots][8] live light rows
+  int* s_ids = reinterpret_cast<int*>(s_dyn + 8 * slots);  // [slots] (in-kernel cull)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x;
@@ -112,7 +127,8 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   raster::raster_tile<kBump>(stream, offs[tile], counts[tile], s_rec4, px, py, inb, depth, nrm,
                              uv, mid);
 
-  // ---- 3. exact light cull against two eye-distance slabs ----
+  // ---- 3. the tile's lights: exact cull against two eye-distance slabs,
+  // or the tile's row of the light lists ----
   const float ex = s_u[U_EYE], ey = s_u[U_EYE + 1], ez = s_u[U_EYE + 2];
   float wpos[kPix][3], d2[kPix];
   bool cov[kPix];
@@ -144,71 +160,83 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
         nrm[0][j] = nb[0], nrm[1][j] = nb[1], nrm[2][j] = nb[2];
       }
   }
-  float dv[2] = {kBig, -kBig};
-#pragma unroll
-  for (int j = 0; j < kPix; ++j)
-    if (cov[j]) {
-      dv[0] = minp(dv[0], d2[j]);
-      dv[1] = maxp(dv[1], d2[j]);
+  int n_live = 0;
+  if constexpr (kLists) {
+    n_live = min(max(light_counts[tile], 0), slots);
+    const int* tile_ids = light_ids + (size_t)tile * slots;
+    for (int q = tid; q < n_live * 8; q += kThreads) {
+      const int id = min(max(tile_ids[q >> 3], 0), n_lights - 1);
+      s_lrow[q] = lights[8 * (size_t)id + (q & 7)];
     }
-  block_minmax<1>(dv, s_red, s_bounds);
-  const float dmid = 0.5f * (s_bounds[0] + s_bounds[1]);
-  float bv[12];  // [slab][axis] (min, max)
+    if (tid == 0) tile_overflow[tile] = 0;
+    __syncthreads();
+  } else {
+    float dv[2] = {kBig, -kBig};
 #pragma unroll
-  for (int i = 0; i < 12; i += 2) {
-    bv[i] = kBig;
-    bv[i + 1] = -kBig;
-  }
+    for (int j = 0; j < kPix; ++j)
+      if (cov[j]) {
+        dv[0] = minp(dv[0], d2[j]);
+        dv[1] = maxp(dv[1], d2[j]);
+      }
+    block_minmax<1>(dv, s_red, s_bounds);
+    const float dmid = 0.5f * (s_bounds[0] + s_bounds[1]);
+    float bv[12];  // [slab][axis] (min, max)
 #pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    if (!cov[j] || !(d2[j] <= dmid || d2[j] > dmid)) continue;  // a NaN joins no slab
-    const int s = d2[j] <= dmid ? 0 : 1;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      bv[6 * s + 2 * a] = minp(bv[6 * s + 2 * a], wpos[j][a]);
-      bv[6 * s + 2 * a + 1] = maxp(bv[6 * s + 2 * a + 1], wpos[j][a]);
+    for (int i = 0; i < 12; i += 2) {
+      bv[i] = kBig;
+      bv[i + 1] = -kBig;
     }
-  }
-  block_minmax<6>(bv, s_red, s_bounds);
-
-  int total = 0;
-  for (int base = 0; base < n_lights; base += kThreads) {
-    const int l = base + tid;
-    bool hit = false;
-    if (l < n_lights) {
-      const float* lr = lights + 8 * (size_t)l;
-      const float r2 = lr[3] * lr[3];
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        float dist2 = 0.0f;
+    for (int j = 0; j < kPix; ++j) {
+      if (!cov[j] || !(d2[j] <= dmid || d2[j] > dmid)) continue;  // a NaN joins no slab
+      const int s = d2[j] <= dmid ? 0 : 1;
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float la = lr[a];
-          const float dd = maxp(maxp(s_bounds[6 * s + 2 * a] - la, la - s_bounds[6 * s + 2 * a + 1]), 0.0f);
-          dist2 = a == 0 ? dd * dd : dist2 + dd * dd;
-        }
-        hit = hit || dist2 <= r2;
+      for (int a = 0; a < 3; ++a) {
+        bv[6 * s + 2 * a] = minp(bv[6 * s + 2 * a], wpos[j][a]);
+        bv[6 * s + 2 * a + 1] = maxp(bv[6 * s + 2 * a + 1], wpos[j][a]);
       }
     }
-    const unsigned ball = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) s_warp[warp] = __popc(ball);
-    __syncthreads();
-    int before = total, round_total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      before += w < warp ? s_warp[w] : 0;
-      round_total += s_warp[w];
+    block_minmax<6>(bv, s_red, s_bounds);
+
+    int total = 0;
+    for (int base = 0; base < n_lights; base += kThreads) {
+      const int l = base + tid;
+      bool hit = false;
+      if (l < n_lights) {
+        const float* lr = lights + 8 * (size_t)l;
+        const float r2 = lr[3] * lr[3];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          float dist2 = 0.0f;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float la = lr[a];
+            const float dd = maxp(maxp(s_bounds[6 * s + 2 * a] - la, la - s_bounds[6 * s + 2 * a + 1]), 0.0f);
+            dist2 = a == 0 ? dd * dd : dist2 + dd * dd;
+          }
+          hit = hit || dist2 <= r2;
+        }
+      }
+      const unsigned ball = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) s_warp[warp] = __popc(ball);
+      __syncthreads();
+      int before = total, round_total = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        before += w < warp ? s_warp[w] : 0;
+        round_total += s_warp[w];
+      }
+      if (hit) {
+        const int pos = before + __popc(ball & ((1u << lane) - 1u));
+        if (pos < slots) s_ids[pos] = l;
+      }
+      total += round_total;
+      __syncthreads();
     }
-    if (hit) {
-      const int pos = before + __popc(ball & ((1u << lane) - 1u));
-      if (pos < ik_slots) s_ids[pos] = l;
-    }
-    total += round_total;
+    n_live = min(total, slots);
+    if (tid == 0) tile_overflow[tile] = total > slots ? 1 : 0;
+    for (int q = tid; q < n_live * 8; q += kThreads) s_lrow[q] = lights[8 * (size_t)s_ids[q >> 3] + (q & 7)];
     __syncthreads();
   }
-  const int n_live = min(total, ik_slots);
-  if (tid == 0) tile_overflow[tile] = total > ik_slots ? 1 : 0;
-  for (int q = tid; q < n_live * 8; q += kThreads) s_lrow[q] = lights[8 * (size_t)s_ids[q >> 3] + (q & 7)];
-  __syncthreads();
 
   // ---- 4. G-buffer round trip + shading + tonemap, per pixel ----
   const size_t plane = (size_t)Hp * Wp;
@@ -244,7 +272,8 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
     }
 
     float hdr[3];
-    shade::shade_pixel<!kAux>(s_u, wpos[j], N, alb, metal, rough, 1.0f, s_lrow, n_live, hdr);
+    shade::shade_pixel<!kAux>(s_u, wpos[j], N, alb, metal, rough, vis ? vis[o] : 1.0f, s_lrow,
+                              n_live, hdr);
     const bool reinhard = s_u[U_TONEMAP] > 0.5f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -258,38 +287,50 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   }
 }
 
-template <bool kBump, bool kAux>
+template <bool kBump, bool kAux, bool kLists>
 int launch(const int* counts, const int* offs, const float* stream, const float* lights,
            int n_lights, const float* mats, int n_mats, const float* uniforms, int nty, int ntx,
-           int tile_h, int tile_w, int ik_slots, float inv_gamma, float strength, float w2pf,
-           bool hdr_out, float* color, int* tile_overflow, cudaStream_t cs) {
-  const size_t dyn = (size_t)ik_slots * (8 * sizeof(float) + sizeof(int));
+           int tile_h, int tile_w, const int* light_ids, const int* light_counts, int slots,
+           const float* vis, float inv_gamma, float strength, float w2pf, bool hdr_out,
+           float* color, int* tile_overflow, cudaStream_t cs) {
+  const size_t dyn = (size_t)slots * (8 * sizeof(float) + sizeof(int));
   if (dyn > 8 * 1024) {  // static + dynamic past 48 KB needs the opt-in
-    const cudaError_t e = cudaFuncSetAttribute(fused_tile_kernel<kBump, kAux>,
+    const cudaError_t e = cudaFuncSetAttribute(fused_tile_kernel<kBump, kAux, kLists>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_tile_kernel<kBump, kAux><<<nty * ntx, kThreads, dyn, cs>>>(
-      counts, offs, stream, lights, n_lights, mats, n_mats, uniforms, ntx, tile_h, tile_w, ik_slots,
-      inv_gamma, strength, w2pf, hdr_out, color, nty * tile_h, ntx * tile_w, tile_overflow);
+  fused_tile_kernel<kBump, kAux, kLists><<<nty * ntx, kThreads, dyn, cs>>>(
+      counts, offs, stream, lights, n_lights, mats, n_mats, uniforms, ntx, tile_h, tile_w,
+      light_ids, light_counts, slots, vis, inv_gamma, strength, w2pf, hdr_out, color,
+      nty * tile_h, ntx * tile_w, tile_overflow);
   return 0;
 }
 
+using LaunchFn = decltype(&launch<false, false, false>);
+// Indexed by bump * 4 + aux * 2 + lists.
+constexpr LaunchFn kLaunch[8] = {
+    launch<false, false, false>, launch<false, false, true>, launch<false, true, false>,
+    launch<false, true, true>,   launch<true, false, false>, launch<true, false, true>,
+    launch<true, true, false>,   launch<true, true, true>,
+};
+
 }  // namespace
 
+// light_ids null: the in-kernel cull into `slots` (ik_slots) compaction
+// slots over n_lights lights.  Else the lists [NT, slots] and counts [NT],
+// n_lights the light table's rows.  vis [Hp, Wp] or null; never with aux.
 extern "C" int fused_tiles_launch(const int* counts, const int* offs, const float* stream,
                                   const float* lights, int n_lights, const float* mats, int n_mats,
                                   const float* uniforms, int nty, int ntx, int tile_h, int tile_w,
-                                  int ik_slots, float inv_gamma, int bump, float strength,
+                                  const int* light_ids, const int* light_counts, int slots,
+                                  const float* vis, float inv_gamma, int bump, float strength,
                                   float w2pf, int hdr_out, int aux, float* color,
                                   int* tile_overflow, cudaStream_t cs) {
   if (nty * ntx > 0) {
-    decltype(&launch<false, false>) fn =
-        bump ? (aux ? launch<true, true> : launch<true, false>)
-             : (aux ? launch<false, true> : launch<false, false>);
+    const LaunchFn fn = kLaunch[(bump ? 4 : 0) + (aux ? 2 : 0) + (light_ids ? 1 : 0)];
     const int e = fn(counts, offs, stream, lights, n_lights, mats, n_mats, uniforms, nty, ntx,
-                     tile_h, tile_w, ik_slots, inv_gamma, strength, w2pf, hdr_out != 0 || aux != 0,
-                     color, tile_overflow, cs);
+                     tile_h, tile_w, light_ids, light_counts, slots, vis, inv_gamma, strength, w2pf,
+                     hdr_out != 0 || aux != 0, color, tile_overflow, cs);
     if (e != 0) return e;
   }
   return (int)cudaGetLastError();

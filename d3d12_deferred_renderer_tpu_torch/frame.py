@@ -4,10 +4,11 @@ The counterpart of d3d12_deferred_renderer_tpu/frame.py, with "on the TPU"
 read as "on the card".  Two paths:
 
 - the fused frame (cfg.fused with cfg.use_pallas, PBR, quantized G-buffer):
-  triangle setup (kernel) -> binning -> fused tile renderer (kernel) ->
-  uint8; with shadows (the deferred-directional split) the shadow map, PCF
-  and the directional resolve (kernel) follow the tile renderer, then
-  bloom, tonemap, gamma and FXAA (ops/fused.render_fused);
+  triangle setup (kernel) -> binning -> [depth prepass (kernel) -> per-tile
+  light cull, and without the deferred-directional split the shadow map +
+  PCF] -> fused tile renderer (kernel) -> uint8; with the split the shadow
+  map, PCF and the directional resolve (kernel) follow the tile renderer,
+  then bloom, tonemap, gamma and FXAA (ops/fused.render_fused);
 - the staged frame, every other ported config: triangle setup (kernel) ->
   raster -> [bump] -> G-buffer encode -> Lambert, or [shadow map + PCF] +
   the per-tile light cull + PBR lighting -> bloom, tonemap, gamma, FXAA ->
@@ -55,16 +56,8 @@ def _fused_eligible(cfg: RendererConfig) -> bool:
 # Configs outside the ported slice, with the ROADMAP.md Queue 1 item that
 # ports them.
 _NOT_PORTED = (
-    (lambda c: _fused_eligible(c) and c.shadows and not c.deferred_directional,
-     "fused shadows without the deferred-directional split (the tile kernel's "
-     "visibility plane, item 7)"),
-    (lambda c: _fused_eligible(c) and not c.inkernel_light_cull,
-     "the fused frame's depth prepass + tile light cull (item 7)"),
-    (lambda c: c.shadows and c.shadow_vis_downsample > 1, "shadow_vis_downsample > 1 (item 7)"),
     (lambda c: c.shadows and c.shadow_window_gather,
      "the shadow window gather (rejected by design; item 7)"),
-    (lambda c: c.shadows and c.shadow_bin_tiers is not None,
-     "calibrated shadow binning tiers (calibrate, item 10)"),
     (lambda c: c.supersample > 1, "supersampling (item 9)"),
 )
 

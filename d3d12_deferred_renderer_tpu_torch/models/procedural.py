@@ -1,7 +1,8 @@
 """Procedurally generated meshes for the benchmark scene (host side, numpy).
 
 A copy of the generators in d3d12_deferred_renderer_tpu/models/procedural.py
-that benchmark_meshes uses; tests/test_torch_frame.py pins the arrays equal.
+that benchmark_meshes and colonnade_meshes use; tests/test_torch_frame.py
+pins the arrays equal.
 Every generator winds triangles to show EXTERIORS under the reference
 rasterizer state (back-face culling, FrontCounterClockwise=TRUE,
 main.cpp:727-728).
@@ -112,6 +113,39 @@ def ground_plane(size: float = 20.0, y: float = -1.0) -> MeshData:
     uv = np.asarray([(0, 0), (1, 0), (1, 1), (0, 1)], np.float32)
     idx = np.asarray([0, 1, 2, 0, 2, 3], np.uint32)  # upward-facing
     return MeshData(pos, nrm, uv, idx, name="ground")
+
+
+def colonnade_meshes(
+    n_columns: int = 12, n_orbs: int = 10, rings: int = 20, segments: int = 40
+) -> list[MeshData]:
+    """The second benchmark layout, with another footprint profile than
+    benchmark_meshes: a larger ground slab, a ring of tall columns (wide
+    screen quads at grazing angles: the medium and large binning tiers) and
+    a line of spheres and toruses marching toward the far plane (small far
+    footprints: the small tier and the live-light lists).  Its layout is in
+    the vertices: place it with make_scene(placement="origin")."""
+    meshes: list[MeshData] = [ground_plane(size=28.0)]
+    for k in range(n_columns):
+        c = cube(1.0)
+        # The unit cube stretched into a 0.6 x 3.2 x 0.6 column standing on
+        # the ground plane (y = -1).
+        c.positions[:, 0] *= 0.6
+        c.positions[:, 1] *= 3.2
+        c.positions[:, 2] *= 0.6
+        c.positions[:, 1] += 0.6
+        ang = 2.0 * np.pi * k / n_columns
+        r = 6.5
+        c.positions[:, 0] += r * np.cos(ang)
+        c.positions[:, 2] += r * np.sin(ang)
+        meshes.append(c)
+    for k in range(n_orbs):
+        m = uv_sphere(0.5, rings, segments) if k % 2 == 0 else torus(
+            0.45, 0.18, rings, max(8, segments // 3)
+        )
+        m.positions[:, 2] += -4.0 + 2.2 * k  # toward the far plane
+        m.positions[:, 0] += (-1.0) ** k * 1.5
+        meshes.append(m)
+    return meshes
 
 
 def benchmark_meshes(n: int = 24, rings: int = 24, segments: int = 48) -> list[MeshData]:

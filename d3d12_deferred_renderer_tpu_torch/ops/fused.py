@@ -1,34 +1,42 @@
-"""Fused tiled-deferred frame: raster -> G-buffer -> light cull -> shading ->
+"""Fused tiled-deferred frame: raster -> G-buffer -> lights -> shading ->
 tonemap, one kernel launch, the G-buffer never leaves the chip.
 
 The counterpart of d3d12_deferred_renderer_tpu/ops/fused.py's
-``render_fused`` with the in-kernel light cull: the flagship frame (PBR)
-and the config-4 stack with the deferred-directional split (shadows,
+``render_fused``: the flagship frame (PBR) and the config-4 stack (shadows,
 procedural bump, bloom, FXAA).  Per screen tile (8 x 128 pixels):
 
 1. rasterize the tile's binned records in submission order (ops/raster_ref
    rules: pixel centers, top-left fill, depth LESS, [0, 1] depth clip,
    perspective-correct normal and, for the bump, uv), then with the bump
    perturb the normals inside the tile (ops/bump.bump_planar);
-2. cull every point light EXACTLY against the tile's geometry: covered
-   pixels split at the midpoint dmid = (dmin + dmax) / 2 of their squared
-   eye distance into two slabs, each slab's world AABB (+-3e38 when empty),
-   and a light is live iff its influence sphere (dist^2 <= r^2) touches
-   either box; live ids compact in ascending order into
-   ``ik_slots = ceil(min(max_live_lights_per_tile, L) / 16) * 16`` slots, and a
-   tile with more live lights adds one to the overflow count;
+2. the tile's point lights, one of two ways:
+   - the in-kernel cull (cfg.inkernel_light_cull): every point light EXACTLY
+     against the tile's geometry: covered pixels split at the midpoint
+     dmid = (dmin + dmax) / 2 of their squared eye distance into two slabs,
+     each slab's world AABB (+-3e38 when empty), and a light is live iff its
+     influence sphere (dist^2 <= r^2) touches either box; live ids compact
+     in ascending order into
+     ``ik_slots = ceil(min(max_live_lights_per_tile, L) / 16) * 16`` slots,
+     and a tile with more live lights adds one to the overflow count;
+   - per-tile light lists: a depth prepass (the depth-only raster kernel on
+     the frame's own binned records) feeds lighting.cull_lights_to_tiles on
+     the kernel's tile grid, capped at min(L, max_live_lights_per_tile) with
+     its own loud overflow; the kernel reads each tile's first count ids;
 3. quantize the normal to 10 bits and decode it, look the material up by the
    winning mesh id (-1 is background and shades to 0);
-4. ambient + directional GGX + the point-light GGX loop over the live ids,
-   then Reinhard and gamma; or linear HDR (bloom follows), and with the
-   split no directional term but the depth, decoded normal and mesh-id
-   planes out.
+4. ambient + directional GGX (times the shadow visibility when there is a
+   plane) + the point-light GGX loop over the live ids, then Reinhard and
+   gamma; or linear HDR (bloom follows), and with the split no directional
+   term but the depth, decoded normal and mesh-id planes out.
 
-The split then adds the directional term outside the tile kernel: the
-shadow map (ops/shadows), PCF visibility from the kernel's own depth plane
-at the tiles with a pixel facing the light, and the directional resolve
-kernel (csrc/resolve.cu: hdr += vis x directional GGX), before bloom,
-tonemap, gamma and FXAA.
+Shadows come one of two ways.  Without the deferred-directional split the
+prepass depth (bit-equal to the kernel's own) gives the PCF visibility
+(ops/shadows) before the tile kernel, which multiplies it into the
+directional term.  With the split the directional term is added after the
+tile kernel: the shadow map, PCF visibility from the kernel's own depth
+plane at the tiles with a pixel facing the light, and the directional
+resolve kernel (csrc/resolve.cu: hdr += vis x directional GGX).  Bloom,
+tonemap, gamma and FXAA follow.
 
 ``fused_tiles_reference`` is the plain PyTorch version of the tile kernel
 (csrc/fused.cu) over [tiles, pixels] tensors; ``fused_tiles`` is the wrapper
@@ -52,12 +60,12 @@ from . import post
 from .binning import CHUNK, bin_triangles
 from .bump import bump_planar
 from .gbuffer import quantize_unorm
-from .lighting import inverse_view_proj
+from .lighting import cull_lights_to_tiles, inverse_view_proj
 from .lighting_cuda import (
     U_EYE, U_H, U_LDIR, U_SIZE, U_TONEMAP, U_W, build_light_table, directional_radiance, dot3,
     make_uniforms, shade_pixels_reference, view_dirs, world_from_depth,
 )
-from .raster_tiles import raster_tile_pixels, tile_pixels, tiles_to_image
+from .raster_tiles import image_to_tiles, raster_depth, raster_tile_pixels, tile_pixels, tiles_to_image
 from .shadows import render_shadow_map, shadow_visibility
 from .transform import TRI_STRIDE, setup_frame_triangles
 
@@ -86,55 +94,24 @@ def live_light_slots(cfg: RendererConfig, n_lights: int) -> int:
     return -(-min(cfg.max_live_lights_per_tile, n_lights) // CHUNK) * CHUNK
 
 
+def pad_light_ids_to_chunk(light_ids: torch.Tensor) -> torch.Tensor:
+    """The per-tile light-id lists [NT, Lk] padded with id 0 to a CHUNK
+    multiple of Lk, as the JAX package pads them (the padding lies past
+    every tile's count and is never read)."""
+    Lk = light_ids.shape[1]
+    return F.pad(light_ids, (0, -(-Lk // CHUNK) * CHUNK - Lk))
+
+
 # --------------------------------------------------------------------------
 # Plain version of the tile kernel
 # --------------------------------------------------------------------------
 
 
-def fused_tiles_reference(
-    counts, offs, stream, lights, mats, uniforms, *,
-    nty, ntx, tile_h, tile_w, n_lights, ik_slots, gamma, bump=None, hdr_out=False,
-    aux=False, return_live=False,
-):
-    """Plain version of the fused tile kernel.
-
-    counts [NT] int32, offs [NT + 1] int32, stream [R, 32] f32 (tile t's
-    records are rows offs[t] .. offs[t] + counts[t]), lights [>= L, 8],
-    mats [>= 8, 8], uniforms [32].  The config-4 variants:
-
-    - ``bump`` (strength, frequency): uv joins the raster and bump_planar
-      perturbs the raw normals per tile before the G-buffer quantization,
-      pixels outside the frame counting as background;
-    - ``hdr_out``: linear HDR out, no tonemap or gamma;
-    - ``aux`` (the deferred-directional split; implies hdr_out): no
-      directional term, and five more planes out: depth, the decoded
-      G-buffer normal xyz and the mesh id (-1 background).
-
-    Returns (color [3 or 8, Hp, Wp] f32, tile_overflow [NT] int32), and
-    with return_live the live-light count of each tile [NT] as a third
-    element: the in-kernel cull's own counts, which the kernel's work bound
-    (chip_smoke.py) needs and no other function computes."""
-    dev = stream.device
-    NT = nty * ntx
-    px, py = tile_pixels(nty, ntx, tile_h, tile_w, dev)
-    u = uniforms
-
-    # ---- raster (ops/raster_tiles; uv only for the bump) ----
-    frags = raster_tile_pixels(counts, offs, stream, px, py, uv=bump is not None)
-    depth, nrm, mid = frags.depth, frags.normal, frags.mesh_id
-    covered = mid >= 0.0
-    world = world_from_depth(u, px, py, depth)
-    if bump is not None:
-        def blk(a):
-            return a.reshape(NT, tile_h, tile_w)
-
-        inside = (px < u[U_W]) & (py < u[U_H])
-        mid_b = torch.where(inside, mid, torch.full_like(mid, -1.0))
-        nrm = bump_planar([blk(w) for w in world], [blk(t) for t in frags.uv], [blk(c) for c in nrm],
-                          blk(mid_b), bump[0], bump[1])
-        nrm = [c.reshape(NT, -1) for c in nrm]
-
-    # ---- exact in-kernel light cull: two eye-distance slabs per tile ----
+def _cull_tiles(u, world, covered, lights, n_lights, ik_slots):
+    """The in-kernel light cull of the plain version -> (ids [NT, ik_slots],
+    live counts [NT], tile overflow [NT] int32)."""
+    dev = covered.device
+    NT = covered.shape[0]
     eye = [u[U_EYE + i] for i in range(3)]
     d = [world[i] - eye[i] for i in range(3)]
     d2 = dot3(d, d)
@@ -159,6 +136,68 @@ def fused_tiles_reference(
     n_live = torch.clamp(cnt, max=ik_slots)
     lid = torch.arange(n_lights, device=dev)
     ids = torch.sort(torch.where(live, lid, n_lights + lid), dim=1).values[:, :ik_slots] % max(n_lights, 1)
+    return ids, n_live, tile_overflow
+
+
+def fused_tiles_reference(
+    counts, offs, stream, lights, mats, uniforms, *,
+    nty, ntx, tile_h, tile_w, n_lights, ik_slots, gamma, bump=None, hdr_out=False,
+    aux=False, light_ids=None, light_counts=None, vis=None, return_live=False,
+):
+    """Plain version of the fused tile kernel.
+
+    counts [NT] int32, offs [NT + 1] int32, stream [R, 32] f32 (tile t's
+    records are rows offs[t] .. offs[t] + counts[t]), lights [>= L, 8],
+    mats [>= 8, 8], uniforms [32].  The lights of a tile come from the
+    in-kernel cull of n_lights lights into ik_slots slots or, when
+    ``light_ids`` [NT, Lk] int32 and ``light_counts`` [NT] int32 are given,
+    from the tile's first count ids (the count clamped to [0, Lk], each id
+    to the table's rows; tile_overflow 0: the lists' cull counts its own).
+    ``vis`` [Hp, Wp] f32, the shadow visibility, multiplies the directional
+    term (never with aux).  The config-4 variants:
+
+    - ``bump`` (strength, frequency): uv joins the raster and bump_planar
+      perturbs the raw normals per tile before the G-buffer quantization,
+      pixels outside the frame counting as background;
+    - ``hdr_out``: linear HDR out, no tonemap or gamma;
+    - ``aux`` (the deferred-directional split; implies hdr_out): no
+      directional term, and five more planes out: depth, the decoded
+      G-buffer normal xyz and the mesh id (-1 background).
+
+    Returns (color [3 or 8, Hp, Wp] f32, tile_overflow [NT] int32), and
+    with return_live the live-light count of each tile [NT] as a third
+    element (the in-kernel cull's own counts, which no other function
+    computes, or the clamped list counts): the kernel's work bound
+    (chip_smoke.py) needs them."""
+    dev = stream.device
+    NT = nty * ntx
+    px, py = tile_pixels(nty, ntx, tile_h, tile_w, dev)
+    u = uniforms
+
+    # ---- raster (ops/raster_tiles; uv only for the bump) ----
+    frags = raster_tile_pixels(counts, offs, stream, px, py, uv=bump is not None)
+    depth, nrm, mid = frags.depth, frags.normal, frags.mesh_id
+    covered = mid >= 0.0
+    world = world_from_depth(u, px, py, depth)
+    if bump is not None:
+        def blk(a):
+            return a.reshape(NT, tile_h, tile_w)
+
+        inside = (px < u[U_W]) & (py < u[U_H])
+        mid_b = torch.where(inside, mid, torch.full_like(mid, -1.0))
+        nrm = bump_planar([blk(w) for w in world], [blk(t) for t in frags.uv], [blk(c) for c in nrm],
+                          blk(mid_b), bump[0], bump[1])
+        nrm = [c.reshape(NT, -1) for c in nrm]
+
+    # ---- the tile's lights: the lists, or the exact in-kernel cull against
+    # two eye-distance slabs per tile ----
+    if light_ids is not None:
+        ids = torch.clamp(light_ids, 0, lights.shape[0] - 1)
+        n_live = torch.clamp(light_counts, 0, light_ids.shape[1])
+        tile_overflow = torch.zeros((NT,), dtype=torch.int32, device=dev)
+    else:
+        ids, n_live, tile_overflow = _cull_tiles(u, world, covered, lights, n_lights, ik_slots)
+    vis_t = None if vis is None else image_to_tiles(vis[None], nty, ntx, tile_h, tile_w)[0]
 
     # ---- materials by winning mesh id; G-buffer normal round trip ----
     mrow = torch.clamp(mid, min=0.0).long()
@@ -176,7 +215,7 @@ def fused_tiles_reference(
 
     # ---- shading (ops/lighting_cuda), tonemap, gamma ----
     out = shade_pixels_reference(u, depth, world, n, alb, metal, rough, lights, ids, n_live,
-                                 direct=not aux)
+                                 vis=vis_t, direct=not aux)
     if not (hdr_out or aux):
         out = [torch.where(u[U_TONEMAP] > 0.5, o / (1.0 + o), o) for o in out]
         out = [torch.pow(torch.clamp(o, min=0.0), 1.0 / gamma) for o in out]
@@ -196,16 +235,23 @@ def fused_tiles_reference(
 def fused_tiles(
     counts, offs, stream, lights, mats, uniforms, *,
     nty, ntx, tile_h, tile_w, n_lights, ik_slots, gamma, bump=None, hdr_out=False, aux=False,
+    light_ids=None, light_counts=None, vis=None,
 ):
     """Fused tile renderer: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see fused_tiles_reference for the contract)."""
     kw = dict(nty=nty, ntx=ntx, tile_h=tile_h, tile_w=tile_w, n_lights=n_lights,
-              ik_slots=ik_slots, gamma=gamma, bump=bump, hdr_out=hdr_out, aux=aux)
+              ik_slots=ik_slots, gamma=gamma, bump=bump, hdr_out=hdr_out, aux=aux,
+              light_ids=light_ids, light_counts=light_counts, vis=vis)
+    if (light_ids is None) != (light_counts is None):
+        raise ValueError("light_ids and light_counts come together")
+    if aux and vis is not None:
+        raise ValueError("the split (aux) adds the directional term later: no visibility plane")
     if stream.device.type == "cpu":
         return fused_tiles_reference(counts, offs, stream, lights, mats, uniforms, **kw)
     from ..utils import cuda_build
 
     NT = nty * ntx
+    Hp, Wp = nty * tile_h, ntx * tile_w
     cuda_build.check_tensors(
         stream.device,
         counts=(counts, torch.int32, (NT,)),
@@ -221,15 +267,33 @@ def fused_tiles(
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's 1024")
     if bump is not None and (tile_h < 2 or tile_w < 2):
         raise ValueError("the in-kernel bump needs tiles of at least 2 x 2 pixels")
-    if not 0 <= ik_slots <= max(n_lights, 0) + CHUNK:
-        raise ValueError(f"ik_slots {ik_slots} out of range for {n_lights} lights")
-    color = torch.empty((8 if aux else 3, nty * tile_h, ntx * tile_w), dtype=F32, device=stream.device)
+    if light_ids is not None:
+        cuda_build.check_tensors(
+            stream.device,
+            light_ids=(light_ids, torch.int32, (NT, None)),
+            light_counts=(light_counts, torch.int32, (NT,)),
+        )
+        if light_ids.shape[1] < 1:
+            raise ValueError("empty light-id lists")
+        # The lists' row length sizes the shared rows; ids index the table.
+        slots, n_rows = light_ids.shape[1], lights.shape[0]
+    else:
+        if not 0 <= ik_slots <= max(n_lights, 0) + CHUNK:
+            raise ValueError(f"ik_slots {ik_slots} out of range for {n_lights} lights")
+        slots, n_rows = ik_slots, n_lights
+    if vis is not None:
+        cuda_build.check_tensors(stream.device, vis=(vis, F32, (Hp, Wp)))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    color = torch.empty((8 if aux else 3, Hp, Wp), dtype=F32, device=stream.device)
     tile_overflow = torch.empty((NT,), dtype=torch.int32, device=stream.device)
     strength, freq = bump if bump is not None else (0.0, 0.0)
     err = cuda_build.library().fused_tiles_launch(
         counts.data_ptr(), offs.data_ptr(), stream.data_ptr(),
-        lights.data_ptr(), n_lights, mats.data_ptr(), mats.shape[0], uniforms.data_ptr(),
-        nty, ntx, tile_h, tile_w, ik_slots, 1.0 / gamma,
+        lights.data_ptr(), n_rows, mats.data_ptr(), mats.shape[0], uniforms.data_ptr(),
+        nty, ntx, tile_h, tile_w, ptr(light_ids), ptr(light_counts), slots, ptr(vis), 1.0 / gamma,
         int(bump is not None), float(strength), 2.0 * math.pi * freq, int(hdr_out or aux), int(aux),
         color.data_ptr(), tile_overflow.data_ptr(),
         torch.cuda.current_stream(stream.device).cuda_stream,
@@ -335,32 +399,54 @@ def finish_frame(color, cfg: RendererConfig, hdr: bool) -> torch.Tensor:
 
 def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool = False):
     """Fused tiled-deferred frame -> uint8 [H, W, 3] (and, with
-    return_overflow, the int32 overflow count: the binning's, tiles whose
-    live lights exceeded their slots and, with shadows, the shadow map's
-    binning and the PCF tile cap).  Whole frames with the in-kernel light
-    cull; shadows only with the deferred-directional split: frame.render_stats
-    checks the config."""
+    return_overflow, the int32 overflow count: the binning's, the light
+    cull's (tiles whose live lights exceeded their slots or list) and, with
+    shadows, the shadow map's binning and the PCF tile cap).  Whole frames;
+    the JAX package's conditions decide the branches: the in-kernel cull
+    when cfg.inkernel_light_cull and there are point lights, the split when
+    cfg.deferred_directional and cfg.shadows, and the depth prepass when the
+    lists or the unsplit shadows need it."""
     H, W = cfg.height, cfg.width
     TH, TW = cfg.tile_h, cfg.tile_w
+    nty, ntx = -(-H // TH), -(-W // TW)
+    li = state.lights
+    L = li.num_point
+    ik = cfg.inkernel_light_cull and L > 0
     split = cfg.deferred_directional and cfg.shadows
 
     tris, view_proj = setup_frame_triangles(state, cfg)
     binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
-    li = state.lights
-    L = li.num_point
     inv_vp = inverse_view_proj(view_proj)
     mats = build_material_table(state.materials, cfg.gamma)
     uniforms = make_uniforms(state.camera.eye, li, cfg, inv_vp, W, H)
     overflow = binned.overflow
-    if split:
+    depth_pre = light_ids = light_counts = vis = None
+    if (L and not ik) or (cfg.shadows and not split):
+        # The depth prepass on the frame's own binned records: bit-equal to
+        # the tile kernel's depth.
+        depth_pre = raster_depth(binned.counts, binned.offs, binned.stream,
+                                 nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)[:H, :W]
+    if L and not ik:
+        tl = cull_lights_to_tiles(depth_pre, li, cfg, view_proj, tile=(TH, TW),
+                                  max_per_tile=min(L, cfg.max_live_lights_per_tile), inv_vp=inv_vp)
+        light_ids = pad_light_ids_to_chunk(tl.indices.reshape(nty * ntx, -1))
+        light_counts = tl.counts.reshape(-1)
+        overflow = overflow + tl.overflow
+    if cfg.shadows:
         sd, lvp, s_overflow = render_shadow_map(state, cfg, return_overflow=True)
         overflow = overflow + s_overflow
+        if not split:
+            vis, v_overflow = shadow_visibility(depth_pre, view_proj, sd, lvp, cfg,
+                                                return_overflow=True, inv_vp=inv_vp)
+            overflow = overflow + v_overflow
+            vis = F.pad(vis, (0, ntx * TW - W, 0, nty * TH - H), value=1.0)
     out, tile_overflow = fused_tiles(
         binned.counts, binned.offs, binned.stream, build_light_table(li), mats, uniforms,
-        nty=-(-H // TH), ntx=-(-W // TW), tile_h=TH, tile_w=TW, n_lights=L,
+        nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, n_lights=L,
         ik_slots=live_light_slots(cfg, L), gamma=cfg.gamma,
         bump=(cfg.bump_strength, cfg.bump_frequency) if cfg.normal_mapping else None,
         hdr_out=cfg.bloom or split, aux=split,
+        light_ids=light_ids, light_counts=light_counts, vis=vis,
     )
     overflow = overflow + tile_overflow.sum().to(torch.int32)
     color = out[0:3]

@@ -11,9 +11,11 @@ orthographic view:
 - ``render_shadow_map``: with cfg.use_pallas the binned depth-only tile
   raster (raster_tiles.rasterize_depth) on 16-row tiles under
   ``shadow_bin_config``, else the whole-frame reference raster;
-- ``shadow_visibility``: percentage-closer filtering of every pixel (dense),
-  or of the tiles holding geometry only (sparse, ``cfg.shadow_tiles_cap``),
-  optionally only of tiles with a pixel that faces the light (``lit_mask``).
+- ``shadow_visibility``: percentage-closer filtering of every pixel (dense;
+  with ``cfg.shadow_vis_downsample`` d > 1 of every d-th pixel, upsampled
+  bilinearly), or of the tiles holding geometry only (sparse,
+  ``cfg.shadow_tiles_cap``), optionally only of tiles with a pixel that
+  faces the light (``lit_mask``).
 
 The sparse path compacts the covered tile ids with a stable sort, a fixed
 number of slots and no host synchronisation; more covered tiles than slots
@@ -27,6 +29,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from .. import xmath
 from ..config import RendererConfig
@@ -75,23 +78,32 @@ def light_view_proj(light_direction: torch.Tensor, center=(0.0, 0.0, 0.0),
 
 def shadow_bin_config(cfg: RendererConfig, n_tris: int) -> RendererConfig:
     """The binning and raster config of the shadow-map pass: the map's size,
-    8x the triangles per tile, tier budgets with at least the default
-    config's headroom (the light's ortho view sees wide occluders face on)
-    and a small tier that holds every possibly live record, and 16-row tiles
-    on maps whose side is a multiple of 128.  (Calibrated tiers,
-    ``cfg.shadow_bin_tiers``, come with calibrate: frame.check_ported
-    raises for them.)"""
+    8x the triangles per tile, and 16-row tiles on maps whose side is a
+    multiple of 128.  The tiers are cfg.shadow_bin_tiers when set
+    (calibrate.autotune_shadow: (expand, expand_medium, max_medium,
+    expand_large, max_large, max_big, max_small)), else budgets with at
+    least the default config's headroom (the light's ortho view sees wide
+    occluders face on) and a small tier that holds every possibly live
+    record."""
     S = cfg.shadow_map_size
-    shadow_cfg = dataclasses.replace(
-        cfg, width=S, height=S, max_tris_per_tile=8 * cfg.max_tris_per_tile,
-        bin_max_small=-(-(n_tris + 2048) // 128) * 128,
-        bin_expand=max(4, cfg.bin_expand),
-        bin_expand_medium=max(32, cfg.bin_expand_medium),
-        bin_max_medium=max(512, cfg.bin_max_medium),
-        bin_expand_large=max(256, cfg.bin_expand_large),
-        bin_max_large=max(64, cfg.bin_max_large),
-        bin_max_big=max(16, cfg.bin_max_big),
-    )
+    shadow_cfg = dataclasses.replace(cfg, width=S, height=S, max_tris_per_tile=8 * cfg.max_tris_per_tile)
+    if cfg.shadow_bin_tiers is not None:
+        e, em, mm, el, ml, mb, ms = cfg.shadow_bin_tiers
+        shadow_cfg = dataclasses.replace(
+            shadow_cfg, bin_expand=e, bin_expand_medium=em, bin_max_medium=mm, bin_expand_large=el,
+            bin_max_large=ml, bin_max_big=mb, bin_max_small=ms,
+        )
+    else:
+        shadow_cfg = dataclasses.replace(
+            shadow_cfg,
+            bin_max_small=-(-(n_tris + 2048) // 128) * 128,
+            bin_expand=max(4, cfg.bin_expand),
+            bin_expand_medium=max(32, cfg.bin_expand_medium),
+            bin_max_medium=max(512, cfg.bin_max_medium),
+            bin_expand_large=max(256, cfg.bin_expand_large),
+            bin_max_large=max(64, cfg.bin_max_large),
+            bin_max_big=max(16, cfg.bin_max_big),
+        )
     if S % 128 == 0:
         shadow_cfg = dataclasses.replace(shadow_cfg, tile_h=16, tile_w=128)
     return shadow_cfg
@@ -135,10 +147,22 @@ def _light_ndc(ndc_x, ndc_y, depth, M):
     return lc[0] / w, lc[1] / w, lc[2] / w
 
 
-def _pcf(shadow_depth, nx, ny, z, bias):
-    """Visibility of light-NDC points: PCF inside the light frustum, 1 out."""
-    uv = torch.stack([(nx + 1.0) * 0.5, (1.0 - ny) * 0.5], dim=-1)
-    vis = sample_bilinear_cmp(shadow_depth, uv, z, bias)
+def _pcf(shadow_depth, nx, ny, z, bias, downsample: int = 1):
+    """Visibility of light-NDC points: PCF inside the light frustum, 1 out.
+    With downsample d > 1 (an [H, W] grid) the comparison runs at the points
+    [o::d, o::d], o = d // 2, and its field is upsampled bilinearly to
+    (H, W) with half-pixel centers, as jax.image.resize(..., "bilinear")
+    upsamples it (equal to float32 rounding: the weights round apart);
+    the frustum test stays per point."""
+    if downsample > 1:
+        o, d = downsample // 2, downsample
+        uv = torch.stack([(nx[o::d, o::d] + 1.0) * 0.5, (1.0 - ny[o::d, o::d]) * 0.5], dim=-1)
+        vis = sample_bilinear_cmp(shadow_depth, uv, z[o::d, o::d], bias)
+        vis = F.interpolate(vis[None, None], size=nx.shape, mode="bilinear", align_corners=False,
+                            antialias=False)[0, 0]
+    else:
+        uv = torch.stack([(nx + 1.0) * 0.5, (1.0 - ny) * 0.5], dim=-1)
+        vis = sample_bilinear_cmp(shadow_depth, uv, z, bias)
     inside = (nx >= -1.0) & (nx <= 1.0) & (ny >= -1.0) & (ny <= 1.0) & (z >= 0.0) & (z <= 1.0)
     return torch.where(inside, vis, torch.ones((), dtype=F32, device=vis.device))
 
@@ -152,32 +176,30 @@ def shadow_visibility(
     bilinear-weighted PCF (the comparison sampler: compare at each footprint
     texel, then filter) at every pixel's light-space position.
 
-    Sparse when ``cfg.shadow_tiles_cap`` is nonzero and the frame tiles
-    evenly into 8 x 128 blocks: only tiles holding geometry (min depth < 1)
-    are sampled, bit-equal to the dense path there, the rest return 1.  With
+    Sparse when ``cfg.shadow_tiles_cap`` is nonzero, the visibility is not
+    downsampled and the frame tiles evenly into 8 x 128 blocks: only tiles
+    holding geometry (min depth < 1) are sampled, bit-equal to the dense
+    path there, the rest return 1.  With
     ``lit_mask`` ([H, W] bool: the pixel faces the light) only tiles with a
     lit covered pixel are sampled, under ``cfg.shadow_tiles_cap_lit``.
     Covered tiles beyond the cap are not sampled and count in the overflow
     (returned with return_overflow).  ``inv_vp`` is the frame's inverse
     view-projection (computed here when None)."""
-    if cfg.shadow_vis_downsample > 1:
-        raise NotImplementedError(
-            "shadow_vis_downsample > 1 is not ported to the PyTorch package yet (ROADMAP.md Queue 1 item 7)"
-        )
     H, W = depth.shape
     dev = depth.device
     if inv_vp is None:
         inv_vp = inverse_view_proj(view_proj)
     M = xmath.matmul4_fma(inv_vp, light_vp)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    if cfg.shadow_tiles_cap != 0 and H % 8 == 0 and W % 128 == 0:
+    d = max(1, cfg.shadow_vis_downsample)
+    if cfg.shadow_tiles_cap != 0 and d == 1 and H % 8 == 0 and W % 128 == 0:
         vis, overflow = _shadow_visibility_sparse(depth, shadow_depth, M, cfg, bias, lit_mask)
         return (vis, overflow) if return_overflow else vis
 
     xs = (torch.arange(W, dtype=F32, device=dev) + 0.5) * (2.0 / W) - 1.0
     ys = 1.0 - (torch.arange(H, dtype=F32, device=dev) + 0.5) * (2.0 / H)
     nx, ny, z = _light_ndc(xs[None, :], ys[:, None], depth, M)
-    vis = _pcf(shadow_depth, nx, ny, z, bias)
+    vis = _pcf(shadow_depth, nx, ny, z, bias, d)
     return (vis, zero) if return_overflow else vis
 
 

@@ -187,8 +187,13 @@ def make_scene(
         orient, scale = np.zeros((m, 3), np.float32), np.ones((m, 3), np.float32)
     elif placement == "grid":
         pos, orient, scale = grid_transforms(m)
+    elif placement == "origin":
+        # Every mesh at the origin: the layout is in the vertex data
+        # (procedural.colonnade_meshes).
+        pos = np.zeros((m, 3), np.float32)
+        orient, scale = np.zeros((m, 3), np.float32), np.ones((m, 3), np.float32)
     else:
-        raise ValueError(f"unknown placement {placement!r}: expected 'reference' or 'grid'")
+        raise ValueError(f"unknown placement {placement!r}: expected 'reference', 'grid' or 'origin'")
     return SceneState(
         geometry=GeometryBuffers.from_host(geo, device),
         position=_t(pos, device),

@@ -49,9 +49,9 @@ SIGNATURES = {
     # pos, mesh_id, mvp, T, M, W, H, cull, packed, aabb, stream
     "setup_depth_launch": (P, P, P, I, I, F, F, I, P, P, P),
     # counts, offs, records, lights, n_lights, mats, n_mats, uniforms, nty,
-    # ntx, tile_h, tile_w, ik_slots, inv_gamma, bump, strength, 2 pi freq,
-    # hdr_out, aux, color, tile_overflow, stream
-    "fused_tiles_launch": (P, P, P, P, I, P, I, P, I, I, I, I, I, F, I, F, F, I, I, P, P, P),
+    # ntx, tile_h, tile_w, light_ids, light_counts, slots, vis, inv_gamma,
+    # bump, strength, 2 pi freq, hdr_out, aux, color, tile_overflow, stream
+    "fused_tiles_launch": (P, P, P, P, I, P, I, P, I, I, I, I, P, P, I, P, F, I, F, F, I, I, P, P, P),
     # counts, offs, records, nty, ntx, tile_h, tile_w, planes, stream
     "raster_tiles_launch": (P, P, P, I, I, I, I, P, P),
     # counts, offs, records, nty, ntx, tile_h, tile_w, depth, stream
@@ -63,6 +63,8 @@ SIGNATURES = {
     "bump_tiles_launch": (P, P, I, I, I, I, F, F, P, P),
     # planes, vis, mats, n_mats, uniforms, Hp, Wp, hdr, stream
     "directional_resolve_launch": (P, P, P, I, P, I, I, P, P),
+    # idx, val, n, out, stream
+    "row_scatter_launch": (P, P, I, P, P),
 }
 
 

@@ -5,11 +5,14 @@ against the JAX package.
   directional_resolve_pallas (interpret mode) on the same planes: within
   rtol 2e-4, atol 2e-5, the lighting kernel's contract (interpret mode
   contracts the GGX sums into fused multiply-adds, the port rounds each).
-* The port's two config-4 frames through tp.render_stats on the CPU (the
+* The port's three config-4 frames through tp.render_stats on the CPU (the
   plain versions of every kernel): the staged frame (setup, tile raster,
-  bump, shadow map, PCF, lighting, bloom) and the fused frame with the
+  bump, shadow map, PCF, lighting, bloom), the fused frame with the
   deferred-directional split (tile renderer with bump and aux planes,
-  shadow map, lit-tile PCF, resolve, bloom), each against the JAX package's
+  shadow map, lit-tile PCF, resolve, bloom) and the unsplit fused frame
+  without the in-kernel cull (depth prepass, per-tile light lists, shadow
+  map, PCF from the prepass depth, tile renderer with bump and the
+  visibility plane, bloom), each against the JAX package's
   staged frame (render_stats with use_pallas off, run op by op) on the same
   scene, given JAX's inverse view-projection: max |du8| <= 1 on fewer than
   2% of pixels (test_fused.py's config-4 contract), and equal overflow.
@@ -73,7 +76,14 @@ def jax_frame():
     return jstate, np.asarray(frame), int(stats["overflow"])
 
 
-@pytest.mark.parametrize("fused_path", [False, True], ids=["staged", "fused_split"])
+FUSED_PATHS = {
+    "staged": dict(fused=False),
+    "fused_split": dict(fused=True),
+    "unsplit": dict(fused=True, deferred_directional=False, inkernel_light_cull=False),
+}
+
+
+@pytest.mark.parametrize("fused_path", list(FUSED_PATHS))
 def test_config4_frame_matches_jax_staged(jax_frame, fused_path, monkeypatch):
     """Given JAX's inverse view-projection: the two packages' LU inverses
     differ in the last bits, and a light-space tap within 1 ULP of a
@@ -83,7 +93,7 @@ def test_config4_frame_matches_jax_staged(jax_frame, fused_path, monkeypatch):
     monkeypatch.setattr(torch.linalg, "inv_ex", lambda a: (
         torch.from_numpy(np.array(jnp.linalg.inv(a.numpy()))), torch.zeros((), dtype=torch.int32)))
     state = tp.scene_from_arrays(tp.arrays_from_state(jstate), device="cpu")
-    frame, stats = tp.render_stats(state, dataclasses.replace(TCFG, fused=fused_path))
+    frame, stats = tp.render_stats(state, dataclasses.replace(TCFG, **FUSED_PATHS[fused_path]))
     diff = np.abs(frame.numpy().astype(int) - ref.astype(int)).max(-1)
     assert frame.shape == ref.shape == (64, 256, 3)
     assert diff.max() <= 1, f"max u8 diff {diff.max()}"

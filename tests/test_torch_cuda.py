@@ -416,3 +416,111 @@ def test_config4_step_frame_on_the_card(config):
     d = (frame.cpu().int() - plain.int()).abs().amax(-1)
     assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.02
     assert float((frame.amax(-1) > 0).double().mean()) > 0.2
+
+
+# ---- the fused frame's depth prepass: K2 fed by per-tile light lists, with
+# the shadow-visibility plane, and the row scatter (K9) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lists", "lists_vis", "lists_vis_bump_hdr", "lists_bump_aux"])
+def test_list_fed_tile_kernel_matches_plain(variant):
+    """K2 reading the prepass's per-tile light lists (and the visibility
+    plane): zero tile overflow, color within 1 u8 LSB on fewer than 1% of
+    pixels (after tonemap and gamma for linear HDR); with aux the depth and
+    mesh-id planes bit-equal to the tile raster kernel's, and the depth,
+    normal and mesh-id planes bit-equal to the plain version's."""
+    dev = _cuda()
+    cfg = dataclasses.replace(CONFIG4, width=200, height=60, inkernel_light_cull=False)
+    state = _scene(cfg, dev)
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    grid = dict(nty=8, ntx=2, tile_h=8, tile_w=128)
+    depth = raster_tiles.raster_depth(b.counts, b.offs, b.stream, **grid)[:60, :200]
+    L = state.lights.num_point
+    tl = lighting.cull_lights_to_tiles(depth, state.lights, cfg, view_proj, tile=(8, 128),
+                                       max_per_tile=min(L, cfg.max_live_lights_per_tile), inv_vp=inv_vp)
+    vis = None
+    if "vis" in variant:
+        vis = torch.rand((64, 256), generator=torch.Generator().manual_seed(7)).to(dev)
+    args = (b.counts, b.offs, b.stream, fused.build_light_table(state.lights),
+            fused.build_material_table(state.materials, cfg.gamma),
+            lighting_cuda.make_uniforms(state.camera.eye, state.lights, cfg, inv_vp, 200, 60))
+    aux = "aux" in variant
+    kw = dict(**grid, n_lights=L, ik_slots=0, gamma=cfg.gamma,
+              bump=(cfg.bump_strength, cfg.bump_frequency) if "bump" in variant else None,
+              hdr_out="hdr" in variant, aux=aux, vis=vis,
+              light_ids=fused.pad_light_ids_to_chunk(tl.indices.reshape(16, -1)),
+              light_counts=tl.counts.reshape(-1))
+    before = fused.fused_tiles.launches
+    got, got_ovf = fused.fused_tiles(*args, **kw)
+    ref, ref_ovf = fused.fused_tiles_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused.fused_tiles.launches == before + 1
+    assert int(tl.counts.max()) > 0
+    assert torch.equal(got_ovf, ref_ovf) and not bool(got_ovf.any())
+    if aux:
+        planes = raster_tiles.raster_tiles(b.counts, b.offs, b.stream, **grid)
+        assert torch.equal(got[3], planes[raster_tiles.PLANE_DEPTH])
+        assert torch.equal(got[7], planes[raster_tiles.PLANE_MID])
+        assert torch.equal(got[3:8], ref[3:8])
+    color = [c[:3] for c in (got, ref)]
+    if kw["hdr_out"] or aux:
+        color = [tp.ops.post.gamma_encode(tp.ops.post.reinhard(c), cfg.gamma) for c in color]
+    d = (torch.round(color[0].clamp(0, 1) * 255) - torch.round(color[1].clamp(0, 1) * 255)).abs()
+    assert float(d.max()) <= 1.0 and float((d > 0).double().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fused_listfed", "config4_fused_unsplit"])
+def test_prepass_step_frame_on_the_card(config):
+    """tp.step_frame of the fused frame with the depth prepass: the depth
+    raster once a frame for the prepass (twice with the shadow map), the
+    tile renderer once, no resolve; the frame agrees with the same frame
+    rendered by the plain versions on the CPU (given the card's inverse):
+    max |du8| <= 1 on fewer than 2% of pixels, overflow 0."""
+    dev = _cuda()
+    if config == "fused_listfed":
+        cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=64, fused=True,
+                                  inkernel_light_cull=False)
+    else:
+        cfg = dataclasses.replace(CONFIG4, deferred_directional=False, inkernel_light_cull=False)
+    state = _scene(cfg, dev, n_lights=16)
+    counters = (setup_cuda.setup_triangles, setup_cuda.setup_depth_triangles, raster_tiles.raster_depth,
+                fused.fused_tiles, fused.directional_resolve)
+    before = [k.launches for k in counters]
+    for _ in range(3):
+        state, frame = tp.step_frame(state, cfg)
+    torch.cuda.synchronize()
+    launched = [k.launches - n for k, n in zip(counters, before)]
+    assert launched == ([3, 0, 3, 3, 0] if config == "fused_listfed" else [3, 3, 6, 3, 0])
+    cpu_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
+    inv_ex = torch.linalg.inv_ex
+    try:
+        torch.linalg.inv_ex = lambda a: tuple(x.to(a.device) for x in inv_ex(a.to(dev)))
+        plain, stats = tp.render_stats(cpu_state, cfg)
+    finally:
+        torch.linalg.inv_ex = inv_ex
+    assert int(stats["overflow"]) == 0
+    d = (frame.cpu().int() - plain.int()).abs().amax(-1)
+    assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.02
+    assert float((frame.amax(-1) > 0).double().mean()) > 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_row_scatter_kernel_matches_plain(n):
+    """Bit-equal to out[idx] = val on a permutation."""
+    from d3d12_deferred_renderer_tpu_torch.ops import scatter
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(n)
+    idx = torch.randperm(n, generator=g).to(torch.int32).to(dev)
+    val = torch.randint(0, 1 << 30, (n, 128), generator=g, dtype=torch.int32).to(dev)
+    before = scatter.row_scatter.launches
+    got = scatter.row_scatter(idx, val)
+    ref = scatter.row_scatter_reference(idx, val)
+    torch.cuda.synchronize()
+    assert scatter.row_scatter.launches == before + 1
+    assert torch.equal(got, ref)

@@ -99,6 +99,24 @@ def test_numpy_scene_generators_identical(kw):
         assert pg.num_triangles == 23_906
 
 
+@pytest.mark.parametrize("kw", [{}, dict(n_columns=6, n_orbs=4, rings=8, segments=12)], ids=["bench", "small"])
+def test_colonnade_generator_identical(kw):
+    """colonnade_meshes (calibrate's second scene) and its origin placement."""
+    jm, pm = dxr.procedural.colonnade_meshes(**kw), tp.procedural.colonnade_meshes(**kw)
+    assert [m.name for m in pm] == [m.name for m in jm]
+    for a, b in zip(jm, pm):
+        for f in ("positions", "normals", "uvs", "indices"):
+            np.testing.assert_array_equal(getattr(b, f), getattr(a, f))
+            assert getattr(b, f).dtype == getattr(a, f).dtype
+    jg, pg = dxr.build_scene_geometry(jm), tp.build_scene_geometry(pm)
+    for f in dataclasses.fields(pg):
+        np.testing.assert_array_equal(getattr(pg, f.name), getattr(jg, f.name), err_msg=f.name)
+    ja = tp.arrays_from_state(dxr.make_scene(jg, JCFG, placement="origin"))
+    pa = tp.arrays_from_state(tp.make_scene(pg, TCFG, placement="origin", device="cpu"))
+    for key in ja:
+        np.testing.assert_array_equal(pa[key], ja[key], err_msg=key)
+
+
 def test_scene_state_identical():
     """make_scene, random_point_lights, Materials.varied and the face-vertex
     columns: the two packages' scenes hold identical arrays."""
@@ -121,6 +139,8 @@ def test_port_imports_no_jax():
         "d3d12_deferred_renderer_tpu_torch.ops.shadows, "
         "d3d12_deferred_renderer_tpu_torch.ops.sampling, "
         "d3d12_deferred_renderer_tpu_torch.ops.bump, "
+        "d3d12_deferred_renderer_tpu_torch.ops.scatter, "
+        "d3d12_deferred_renderer_tpu_torch.calibrate, "
         "d3d12_deferred_renderer_tpu_torch.models.obj; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'d3d12_deferred_renderer_tpu.'))]; "
@@ -130,16 +150,11 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(shadows=True), dict(inkernel_light_cull=False),
-    dict(shadows=True, deferred_directional=True, shadow_vis_downsample=2),
     dict(shadows=True, fused=False, shadow_window_gather=True),
-    dict(shadows=True, fused=False, shadow_bin_tiers=(4, 32, 512, 256, 64, 16, 26112)),
     dict(supersample=2),
 ], ids=lambda c: next(iter(c)) if len(c) == 1 else "_".join(c)[-20:])
 def test_configs_outside_the_slice_raise(change):
-    """Fused shadows without the deferred-directional split, the fused
-    frame without the in-kernel cull, downsampled PCF, the window gather,
-    calibrated shadow tiers and supersampling raise."""
+    """The window gather (rejected by design) and supersampling raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tp.frame.check_ported(dataclasses.replace(TCFG, **change))
 
@@ -150,10 +165,14 @@ def test_configs_outside_the_slice_raise(change):
     dict(normal_mapping=True), dict(bloom=True), dict(fxaa=True), dict(deferred_directional=True),
     dict(shadows=True, deferred_directional=True, normal_mapping=True, bloom=True),
     dict(fused=False, shadows=True, normal_mapping=True, bloom=True, fxaa=True),
+    dict(shadows=True), dict(inkernel_light_cull=False),
+    dict(shadows=True, deferred_directional=True, shadow_vis_downsample=2),
+    dict(shadows=True, fused=False, shadow_bin_tiers=(4, 32, 512, 256, 64, 16, 26112)),
 ], ids=lambda c: "_".join(c))
 def test_staged_configs_are_ported(change):
     """The staged frame takes Lambert, the unfused and unquantized PBR
     frames and the config-4 stack; the fused frame takes the bump, bloom,
-    FXAA and shadows with the deferred-directional split; the in-kernel
-    cull switch only matters to the fused frame."""
+    FXAA, shadows with or without the deferred-directional split, and the
+    depth prepass with per-tile light lists; downsampled PCF and calibrated
+    shadow tiers are ported."""
     tp.frame.check_ported(dataclasses.replace(TCFG, **change))

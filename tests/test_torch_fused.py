@@ -4,14 +4,21 @@ The plain version of the fused tile kernel (fused_tiles_reference, which the
 port's wrapper runs on CPU tensors) is fed the JAX setup's records through
 the port's binning, and its frame is held against JAX render_fused run as
 the JAX tests run it on the CPU (interpret=True), at a grid that divides the
-frame and at one with padded tiles.  Contract (test_fused.py): max |du8| <= 1,
-fewer than 1% of pixels different, and equal overflow counts, including a
-case where the in-kernel light cull overflows its slots.
+frame and at one with padded tiles.  Two more cases run the port's whole
+render_fused on the JAX setup's records, given JAX's inverse view-projection
+(a PCF tap within a ULP of a shadow-map texel flips when the inverses
+differ in the last bit): the depth prepass with per-tile light lists in
+place of the in-kernel cull, and with it the shadow-visibility plane
+(shadows without the deferred-directional split).  Contract
+(test_fused.py): max |du8| <= 1, fewer than 1% of pixels different, and
+equal overflow counts, including a case where the in-kernel light cull
+overflows its slots.
 """
 import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,6 +33,7 @@ from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting_cuda
 from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
 from d3d12_deferred_renderer_tpu_torch.ops.lighting import inverse_view_proj
 from d3d12_deferred_renderer_tpu_torch.ops.raster_ref import rasterize_packed
+from d3d12_deferred_renderer_tpu_torch.ops.transform import TriSetup
 
 BASE = dxr.RendererConfig(
     width=256, height=64, tile_h=8, tile_w=128, shading="pbr", use_pallas=False,
@@ -38,12 +46,28 @@ CASES = {
     # beyond the 16 compaction slots of max_live_lights_per_tile=8.
     "light_overflow": (
         dataclasses.replace(BASE, max_lights_per_tile=32, max_live_lights_per_tile=8), 50.0),
+    # The depth prepass: per-tile light lists in place of the in-kernel cull.
+    "list_fed": (dataclasses.replace(BASE, inkernel_light_cull=False), 3.0),
+    # Shadows without the deferred-directional split: the lists and the
+    # PCF visibility plane.
+    "vis": (dataclasses.replace(BASE, inkernel_light_cull=False, shadows=True, shadow_map_size=128), 3.0),
 }
 
-_jax_frame = jax.jit(
+_jax_jit_frame = jax.jit(
     functools.partial(jax_render_fused, interpret=True, return_overflow=True),
     static_argnums=(1,),
 )
+
+
+def _jax_frame(state, cfg):
+    """JAX render_fused in interpret mode; with shadows op by op: inside
+    jax.jit XLA contracts products of the light-view setup into fused
+    multiply-adds, which moves shadow-map texels off the op-by-op setup the
+    port is pinned to (tests/test_torch_shadows.py) and, through PCF, one
+    pixel of the "vis" frame by 17 LSB."""
+    if cfg.shadows:
+        return jax_render_fused(state, cfg, interpret=True, return_overflow=True)
+    return _jax_jit_frame(state, cfg)
 
 
 def _state(cfg, radius):
@@ -55,9 +79,30 @@ def _state(cfg, radius):
     return dxr.animate(state, cfg.yaw_per_frame, cfg)
 
 
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _port_render_fused(state, cfg, tris, view_proj):
+    """The port's render_fused on the JAX setup's records and JAX's inverse
+    view-projection -> (frame, overflow)."""
+    setup = (TriSetup(packed=_t(tris.packed), aabb=_t(tris.aabb), valid=_t(tris.valid)), _t(view_proj))
+    inv_vp = _t(jnp.linalg.inv(view_proj))
+    port_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused, "setup_frame_triangles", lambda s, c: setup)
+        mp.setattr(fused, "inverse_view_proj", lambda vp: inv_vp)
+        frame, overflow = fused.render_fused(port_state, tp.RendererConfig(**dataclasses.asdict(cfg)),
+                                             return_overflow=True)
+    return frame.numpy(), int(overflow), tris
+
+
 def _port_frame(state, cfg):
-    """The JAX setup's records -> port binning -> plain tile renderer."""
+    """The JAX setup's records -> port binning -> plain tile renderer (the
+    in-kernel cull), or the port's whole render_fused (the prepass)."""
     tris, view_proj = jax_setup(state, cfg)
+    if not cfg.inkernel_light_cull:
+        return _port_render_fused(state, cfg, tris, view_proj)
     packed = torch.from_numpy(np.array(tris.packed))
     tcfg = tp.RendererConfig(**dataclasses.asdict(cfg))
     binned = bin_triangles(
@@ -143,3 +188,15 @@ def test_wrapper_runs_plain_version_on_cpu():
     ref = fused.fused_tiles_reference(*args, **kw)
     assert fused.fused_tiles.launches == before
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_wrapper_rejects_vis_with_the_split():
+    """The split adds the directional term after the kernel: a visibility
+    plane with aux, or ids without counts, is refused on any device."""
+    kw = dict(nty=1, ntx=1, tile_h=8, tile_w=128, n_lights=1, ik_slots=0, gamma=2.2)
+    args = (torch.zeros(1, dtype=torch.int32), torch.zeros(2, dtype=torch.int32), torch.zeros((1, 32)),
+            torch.zeros((1, 8)), torch.zeros((8, 8)), torch.zeros(32))
+    with pytest.raises(ValueError, match="aux"):
+        fused.fused_tiles(*args, **kw, aux=True, vis=torch.ones((8, 128)))
+    with pytest.raises(ValueError, match="together"):
+        fused.fused_tiles(*args, **kw, light_ids=torch.zeros((1, 16), dtype=torch.int32))

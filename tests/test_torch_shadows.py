@@ -14,7 +14,12 @@ side run op by op (as the port's setup is pinned to it):
   plane of the full tile raster;
 * the samplers bit-equal; dense, sparse and sparse + lit PCF visibility
   bit-equal (given JAX's inverse view-projection), with equal overflow,
-  also where the tile cap overflows.
+  also where the tile cap overflows;
+* downsampled visibility (shadow_vis_downsample 2 and 3, on a 61 x 253
+  grid that neither divides) within 1e-6: the comparisons at the sampled
+  pixels are the dense path's, and the bilinear upsampling weights round
+  apart in float32 (jax.image.resize against F.interpolate);
+* calibrated light-view tiers (shadow_bin_tiers) in shadow_bin_config.
 """
 import dataclasses
 
@@ -155,3 +160,25 @@ def test_visibility_matches_jax(scene, case):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert int(tov) == int(jov) == (1 if case == "cap_overflow" else 0)
     assert 0.0 < float((got < 1.0).double().mean()) < 0.9  # some pixels in shadow
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_downsampled_visibility_matches_jax(scene, d):
+    jcfg = dataclasses.replace(JCFG, shadow_vis_downsample=d)
+    depth = np.asarray(scene["depth"])[:61, :253]
+    ref = jsh.shadow_visibility(depth, scene["vp"], scene["sd"], scene["lvp"], jcfg)
+    got, ovf = shadows.shadow_visibility(
+        t(depth), t(scene["vp"]), t(scene["sd"]), t(scene["lvp"]), tp.RendererConfig(**dataclasses.asdict(jcfg)),
+        return_overflow=True, inv_vp=t(scene["inv_vp"]),
+    )
+    assert got.shape == (61, 253) and int(ovf) == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    assert 0.0 < float((got < 1.0).double().mean()) < 0.9  # some pixels in shadow
+
+
+def test_calibrated_shadow_tiers_match_jax():
+    tiers = (4, 32, 512, 256, 64, 16, 26112)
+    jcfg = dataclasses.replace(JCFG, shadow_bin_tiers=tiers)
+    got = shadows.shadow_bin_config(tp.RendererConfig(**dataclasses.asdict(jcfg)), 1234)
+    assert dataclasses.asdict(got) == dataclasses.asdict(jsh.shadow_bin_config(jcfg, 1234))
+    assert (got.bin_expand, got.bin_max_small, got.tile_h) == (4, 26112, 16)

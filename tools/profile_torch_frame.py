@@ -3,8 +3,11 @@
     python3 tools/profile_torch_frame.py [--frames 10] [--out chiprun_out/profile]
 
 For each main path of the port (config 1, the fused and the staged
-flagship frame, and config 4 (shadows + bump + bloom, 1024^2 shadow map)
-fused with the deferred-directional split and staged) it warms up, then runs `--frames` step_frame calls
+flagship frame, the fused flagship with the depth prepass and per-tile light
+lists in place of the in-kernel cull, and config 4 (shadows + bump + bloom,
+1024^2 shadow map) fused with the deferred-directional split, fused without
+it (the prepass, the lists and the visibility plane) and staged) it warms
+up, then runs `--frames` step_frame calls
 under torch.profiler and prints one JSON line: ms per frame on the host
 clock around the synchronised window, the device's busy share (the summed
 time of the CUDA kernels and copies over the window), kernel launches,
@@ -35,8 +38,11 @@ def _scenes(tp, dev):
     geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=24))
     config4 = dict(shadows=True, normal_mapping=True, bloom=True, deferred_directional=True,
                    inkernel_light_cull=True, max_lights_per_tile=128, shadow_vis_downsample=1)
+    unsplit = {**config4, "deferred_directional": False, "inkernel_light_cull": False}
     for label, fused, extra in (("fused_flagship", True, {}), ("staged_flagship", False, {}),
-                                ("config4_fused_split", True, config4), ("config4_staged", False, config4)):
+                                ("fused_listfed", True, {"inkernel_light_cull": False}),
+                                ("config4_fused_split", True, config4), ("config4_fused_unsplit", True, unsplit),
+                                ("config4_staged", False, config4)):
         cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=fused, **extra)
         yield label, cfg, tp.make_scene(
             geo, cfg, lights=tp.random_point_lights(256, cfg=cfg, radius=1.2, device=dev),
