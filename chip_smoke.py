@@ -11,11 +11,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              padding exact, float fields bit-equal or within rounding bounds.
 3. k2      — the fused tile kernel against its plain version on the same
              binned input, at 256x64 and 1920x1080: equal per-tile overflow,
-             max |du8| <= 1, fewer than 1% of pixels different.
+             max |du8| <= 1, fewer than 1% of pixels different; records
+             and live lights per tile, ms back to back and replayed from a
+             CUDA graph (device_ms), the bound from the pixels inside each
+             binned record's box.
 4. k6      — the tile raster kernel against its plain version on the same
              binned input at 256x64, 1280x720 (config 1) and 1920x1080
              (flagship scene): depth, mesh id and pad planes bit-equal,
-             normal and uv planes within 2e-6, equal overflow.
+             normal and uv planes within 2e-6, equal overflow; timed as k2.
 5. k7      — the G-buffer lighting kernel against its plain version on the
              flagship G-buffer (256 lights), without and with a visibility
              plane: HDR within rtol 2e-4, atol 2e-5, after tonemap + gamma
@@ -24,8 +27,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              light's view of the flagship scene, cull none: records and
              boxes bit-equal.
 7. k3      — the depth-only raster kernel: the 1024^2 shadow map on 16 x 128
-             tiles bit-equal to its plain version, and on the display grid
-             bit-equal to the tile raster kernel's depth plane.
+             tiles equal (torch.equal) to its plain version at 64, 128 and
+             256 records a work item, and on the display grid equal to the
+             tile raster kernel's depth plane; timed as k2 on both grids.
 8. k8      — the bump kernel against its plain version on the flagship
              frame's fragments: normals within 1e-6 (both round every
              operation once).
@@ -249,6 +253,35 @@ def per_tile_covered(depth_planes, tile_h: int, tile_w: int):
     """Covered pixels (depth < 1) per tile [NT] of a [Hp, Wp] depth plane."""
     Hp, Wp = depth_planes.shape
     return (depth_planes < 1.0).reshape(Hp // tile_h, tile_h, Wp // tile_w, tile_w).sum((1, 3)).reshape(-1)
+
+
+def raster_box_pixels(counts, offs, stream, ntx: int, tile_h: int, tile_w: int) -> int:
+    """The raster work these binned records need: over every (tile, valid
+    record) pair, the pixel centres inside the record's box (its vertices'
+    min and max) and inside its tile, computed on the card."""
+    import torch
+
+    n = counts.long()
+    tiles = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n)
+    first = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    rows = offs[:-1].long()[tiles] + (torch.arange(tiles.numel(), device=n.device) - first)
+    rec = stream[rows]
+    x, y = rec[:, 0:6:2], rec[:, 1:6:2]
+    counted = []
+    for lo, hi, t0, size in ((x.amin(1), x.amax(1), (tiles % ntx) * tile_w, tile_w),
+                             (y.amin(1), y.amax(1), (tiles // ntx) * tile_h, tile_h)):
+        c0 = torch.maximum(torch.ceil(lo - 0.5), t0.float())
+        c1 = torch.minimum(torch.floor(hi - 0.5), (t0 + size - 1).float())
+        counted.append(torch.nan_to_num(torch.clamp(c1 - c0 + 1.0, min=0.0), nan=0.0).double())
+    return int((counted[0] * counted[1] * (rec[:, 28] > 0.0)).sum())
+
+
+def tile_load(counts) -> dict:
+    """Records per tile: the most, and the 99th percentile."""
+    import torch
+
+    c = counts.double()
+    return {"max_records_in_a_tile": int(c.max()), "p99_records_per_tile": float(torch.quantile(c, 0.99))}
 
 
 def reset_launches(kernels) -> None:
@@ -594,19 +627,23 @@ def main() -> int:
                 "bit_equal_frac": float((color == pcolor).double().mean()), **st}
         if label == "1920x1080":
             line["binned_pairs"] = int(binned.offs[-1])
-            line["max_tris_in_a_tile"] = int(binned.counts.max())
+            line.update(tile_load(binned.counts))
+            line["max_live_lights_in_a_tile"] = int(live.max())
             line["ms"] = cuda_ms(lambda: fused.fused_tiles(*args, **kw), 50)
+            line["device_ms"] = graph_ms(lambda: fused.fused_tiles(*args, **kw), 50)
             line["plain_ms"] = cuda_ms(lambda: fused.fused_tiles_reference(*args, **kw), 2)
-            # The work this frame needs: the binned pairs at every tile pixel,
-            # every covered pixel, and every covered pixel with each live
-            # light of its tile (covered pixels from the tile raster kernel
-            # on the same records).
+            # The work this frame needs: the pixels inside each binned
+            # record's box in its tile, every covered pixel, and every
+            # covered pixel with each live light of its tile (covered pixels
+            # from the tile raster kernel on the same records).
             planes = raster_tiles.raster_tiles(binned.counts, binned.offs, binned.stream,
                                                **{k: kw[k] for k in ("nty", "ntx", "tile_h", "tile_w")})
             cov = per_tile_covered(planes[raster_tiles.PLANE_DEPTH], kcfg.tile_h, kcfg.tile_w)
-            P = kcfg.tile_h * kcfg.tile_w
             pairs = int(binned.counts.sum())
-            k2_ops = (pairs * P * RASTER_OPS_PER_RECORD_PIXEL + int(cov.sum()) * SHADE_OPS_PER_PIXEL
+            box_px = raster_box_pixels(binned.counts, binned.offs, binned.stream, kw["ntx"], kcfg.tile_h,
+                                       kcfg.tile_w)
+            line["box_pixels"] = box_px
+            k2_ops = (box_px * RASTER_OPS_PER_RECORD_PIXEL + int(cov.sum()) * SHADE_OPS_PER_PIXEL
                       + int((cov * live).sum()) * SHADE_OPS_PER_PIXEL_LIGHT)
             k2_bytes = (pairs * 128 + 4 * (2 * binned.counts.numel() + 1) + 4 * args[3].numel()
                         + 4 * args[4].numel() + 4 * args[5].numel() + 4 * color.numel() + 4 * tovf.numel())
@@ -617,7 +654,7 @@ def main() -> int:
                 source="d3d12_deferred_renderer_tpu_torch/csrc/fused.cu",
                 replaces="d3d12_deferred_renderer_tpu/ops/fused.py:157",
                 max_abs_err=err, ms=line["ms"], plain_ms=line["plain_ms"],
-                **bound(k2_bytes, k2_ops), library_ms=None,
+                **bound(k2_bytes, k2_ops), library_ms=None, device_ms=line["device_ms"],
             )
         emit(line)
 
@@ -654,19 +691,22 @@ def main() -> int:
         line = {"phase": "k6", "ok": True, "size": label, "overflow": int(binned.overflow),
                 "covered_frac": covered, "max_abs_err": err,
                 "bit_equal_frac": float((planes == pplanes).double().mean()),
-                "binned_pairs": int(binned.counts.sum()), "max_tris_in_a_tile": int(binned.counts.max())}
+                "binned_pairs": int(binned.counts.sum()), **tile_load(binned.counts)}
         if label == "1920x1080":
             line["ms"] = cuda_ms(lambda: raster_tiles.raster_tiles(*bargs, **kw), 100)
+            line["device_ms"] = graph_ms(lambda: raster_tiles.raster_tiles(*bargs, **kw), 50)
             line["plain_ms"] = cuda_ms(lambda: raster_tiles.raster_tiles_reference(*bargs, **kw), 2)
             pairs = int(binned.counts.sum())
             k6_bytes = pairs * 128 + 4 * (2 * binned.counts.numel() + 1) + 4 * planes.numel()
-            line.update(bound(k6_bytes, pairs * TH * TW * RASTER_OPS_PER_RECORD_PIXEL))
+            line["box_pixels"] = raster_box_pixels(*bargs, kw["ntx"], TH, TW)
+            k6_bound = bound(k6_bytes, line["box_pixels"] * RASTER_OPS_PER_RECORD_PIXEL)
+            line.update(k6_bound)
             kernels["raster"] = dict(
                 name="raster_tiles", route="cuda",
                 source="d3d12_deferred_renderer_tpu_torch/csrc/raster.cu",
                 replaces="d3d12_deferred_renderer_tpu/ops/raster_pallas.py:730",
-                max_abs_err=err, ms=line["ms"], plain_ms=line["plain_ms"],
-                **bound(k6_bytes, pairs * TH * TW * RASTER_OPS_PER_RECORD_PIXEL), library_ms=None,
+                max_abs_err=err, ms=line["ms"], plain_ms=line["plain_ms"], **k6_bound, library_ms=None,
+                device_ms=line["device_ms"],
             )
         emit(line)
 
@@ -774,20 +814,36 @@ def main() -> int:
     check(int(sb.overflow) == 0, f"shadow binning overflow {int(sb.overflow)}")
     shadow_cov = float((sdepth < 1.0).double().mean())
     check(shadow_cov > 0.05, f"shadow map nearly empty ({shadow_cov})")
+    # The split at other work-item sizes R: the same depth.
+    for R in (128, 256):
+        check(torch.equal(raster_tiles.raster_depth(*sargs, **skw, records_per_block=R), psdepth),
+              f"K3 shadow map at R = {R} differs from its plain version")
     k3_ms = cuda_ms(lambda: raster_tiles.raster_depth(*sargs, **skw), 100)
+    k3_dev_ms = graph_ms(lambda: raster_tiles.raster_depth(*sargs, **skw), 50)
+    k3_r_ms = {R: graph_ms(lambda: raster_tiles.raster_depth(*sargs, **skw, records_per_block=R), 50)
+               for R in (64, 128, 256)}
     k3_plain_ms = cuda_ms(lambda: raster_tiles.raster_depth_reference(*sargs, **skw), 2)
+    pre_dev_ms = graph_ms(lambda: raster_tiles.raster_depth(db.counts, db.offs, db.stream, **dkw), 50)
     spairs = int(sb.counts.sum())
     k3_bytes = spairs * 128 + 4 * (2 * sb.counts.numel() + 1) + 4 * sdepth.numel()
-    k3_ops = spairs * scfg.tile_h * scfg.tile_w * RASTER_OPS_PER_RECORD_PIXEL
+    s_box_px = raster_box_pixels(*sargs, skw["ntx"], scfg.tile_h, scfg.tile_w)
+    k3_bound = bound(k3_bytes, s_box_px * RASTER_OPS_PER_RECORD_PIXEL)
+    d_box_px = raster_box_pixels(db.counts, db.offs, db.stream, ntx, TH, TW)
+    pre_bound = bound(4 * int(db.counts.sum()) * 32 + 4 * (2 * NT + 1) + 4 * ddepth.numel(),
+                      d_box_px * RASTER_OPS_PER_RECORD_PIXEL)
     emit({"phase": "k3", "ok": True, "size": f"{S}x{S}", "tile": f"{scfg.tile_h}x{scfg.tile_w}",
-          "binned_pairs": spairs, "max_tris_in_a_tile": int(sb.counts.max()),
+          "binned_pairs": spairs, **tile_load(sb.counts), "box_pixels": s_box_px,
+          "records_per_block": raster_tiles.DEPTH_RECORDS_PER_BLOCK,
           "tris_per_tile_cap": scfg.max_tris_per_tile, "covered_frac": shadow_cov,
-          "display_grid_bit_equal_to_k6": True, "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain_ms,
-          **bound(k3_bytes, k3_ops)})
+          "display_grid_bit_equal_to_k6": True, "max_abs_err": 0.0, "ms": k3_ms, "device_ms": k3_dev_ms,
+          "device_ms_by_records_per_block": k3_r_ms, "plain_ms": k3_plain_ms, **k3_bound,
+          "prepass": {"size": f"{W}x{H}", "binned_pairs": int(db.counts.sum()), **tile_load(db.counts),
+                      "box_pixels": d_box_px, "device_ms": pre_dev_ms, **pre_bound}})
     kernels["raster_depth"] = dict(
         name="raster_depth", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/raster.cu",
         replaces="d3d12_deferred_renderer_tpu/ops/raster_pallas.py:799",
-        max_abs_err=0.0, ms=k3_ms, plain_ms=k3_plain_ms, **bound(k3_bytes, k3_ops), library_ms=None,
+        max_abs_err=0.0, ms=k3_ms, plain_ms=k3_plain_ms, **k3_bound, library_ms=None, device_ms=k3_dev_ms,
+        prepass_device_ms=pre_dev_ms, prepass_bound_ms=pre_bound["bound_ms"],
     )
     del sdepth, psdepth, ddepth
 
@@ -842,9 +898,10 @@ def main() -> int:
                        for o in (out4, pout4)))
     check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"K2 variant frame off: {st}")
     k2v_ms = cuda_ms(lambda: fused.fused_tiles(*args, **kw), 50)
+    k2v_dev_ms = graph_ms(lambda: fused.fused_tiles(*args, **kw), 50)
     emit({"phase": "k2v", "ok": True, "variant": "bump+hdr_out+aux", "max_abs_err": float((out4 - pout4).abs().max()),
           "aux_max_abs_err": aux_err, "aux_depth_mid_bit_equal_to_k6": True, "overflow": int(tovf4.sum()),
-          "ms": k2v_ms, **st})
+          "ms": k2v_ms, "device_ms": k2v_dev_ms, **st})
     del dplanes
 
     # ---- 10. K5: the directional resolve on the k2v planes (the kernel's
@@ -902,14 +959,13 @@ def main() -> int:
         "lists+vis+bump+hdr_out": dict(lkw, vis=vis_u, bump=bump4, hdr_out=True),
         "lists+bump+aux": dict(lkw, bump=bump4, aux=True),
     }
-    P = TH * TW
     cov_l = per_tile_covered(depth_pre, TH, TW)
     pairs = int(binned.counts.sum())
     live_pairs = int((cov_l * counts).sum())
-    k2l_ops = (pairs * P * RASTER_OPS_PER_RECORD_PIXEL + int(cov_l.sum()) * SHADE_OPS_PER_PIXEL
-               + live_pairs * SHADE_OPS_PER_PIXEL_LIGHT)
+    k2l_ops = (raster_box_pixels(*bargs, ntx, TH, TW) * RASTER_OPS_PER_RECORD_PIXEL
+               + int(cov_l.sum()) * SHADE_OPS_PER_PIXEL + live_pairs * SHADE_OPS_PER_PIXEL_LIGHT)
     ik_ms = cuda_ms(lambda: fused.fused_tiles(*args, **kw), 50)
-    k2l_ms = {}
+    k2l_ms, k2l_dev_ms = {}, {}
     for label, vkw in k2l_variants.items():
         lout, lovf = fused.fused_tiles(*args, **vkw)
         plout, plovf = fused.fused_tiles_reference(*args, **vkw)
@@ -931,6 +987,7 @@ def main() -> int:
             check(aux_err == 0.0, f"K2 {label} aux planes off the plain version's by {aux_err}")
             line["aux_depth_mid_bit_equal_to_k6"] = True
         line["ms"] = k2l_ms[label] = cuda_ms(lambda: fused.fused_tiles(*args, **vkw), 50)
+        line["device_ms"] = k2l_dev_ms[label] = graph_ms(lambda: fused.fused_tiles(*args, **vkw), 50)
         # The bytes the function needs: the in-kernel cull's, plus the lists
         # and counts and, with it, the visibility plane; the same operations
         # over this frame's live pixel-light pairs.
@@ -944,10 +1001,11 @@ def main() -> int:
             line["lists_shape"] = list(ids.shape)
             line["max_live_lights_in_a_tile"] = int(counts.max())
             line["live_pixel_light_pairs"] = live_pairs
-            kernels["fused"]["list_fed"] = dict(ms=line["ms"], plain_ms=line["plain_ms"], in_kernel_cull_ms=ik_ms,
-                                                **bound(k2l_bytes, k2l_ops))
+            kernels["fused"]["list_fed"] = dict(ms=line["ms"], device_ms=line["device_ms"], plain_ms=line["plain_ms"],
+                                                in_kernel_cull_ms=ik_ms, **bound(k2l_bytes, k2l_ops))
         emit(line)
     kernels["fused"]["variants_ms"] = k2l_ms
+    kernels["fused"]["variants_device_ms"] = k2l_dev_ms
     del args, lout, plout, kplanes, depth_pre, vis_u, sd4
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t_start})
 
@@ -1238,7 +1296,7 @@ def main() -> int:
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("device_ms", "list_fed", "variants_ms", "rows")
+    extra = ("device_ms", "list_fed", "variants_ms", "variants_device_ms", "rows", "prepass_device_ms", "prepass_bound_ms")
     emit({"kernels": [{**{k: kernels[n][k] for k in keys}, **{k: kernels[n][k] for k in extra if k in kernels[n]}}
                       for n in ("setup", "fused", "raster", "shade", "setup_depth", "raster_depth", "bump",
                                 "resolve", "scatter")]})

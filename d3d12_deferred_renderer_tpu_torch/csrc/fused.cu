@@ -16,15 +16,23 @@
 // version is ops/fused.py:fused_tiles_reference, and the arithmetic below
 // follows it operation for operation, in the same association order.
 //
-// One block of 256 threads per tile (up to 1024 pixels, 8 x 128 in the
-// flagship config); thread tid owns pixels tid + 256 * j, j < 4, so a warp
-// writes neighbouring pixels of one row.
+// One block of 512 threads per tile (up to 1024 pixels, 8 x 128 in the
+// flagship config); thread tid owns pixels tid + 512 * j, j < 2, so a warp
+// writes neighbouring pixels of one row.  The block keeps the whole tile:
+// the cull and the shading need all of its pixels, and first-wins ties
+// with attributes do not merge by an atomic.  On an H100, 512 threads of 2
+// pixels (97-107 registers) run the flagship frame in 0.276 ms where 256 of
+// 4 (64-84 registers) take 0.392 (PERF.md): the serial shading loop of the
+// light-heaviest tile sets the time, and halving a thread's pixels halves
+// it.
 //
 // 1-2. Records and raster: raster.cuh, the tile raster this kernel shares
-//    with the tile raster kernel (raster.cu).  The tile's segment
+//    with the tile raster kernels (raster.cu).  The tile's segment
 //    [offs[t], offs[t] + counts[t]) of the record stream comes through
-//    shared memory in chunks of 64 records, rasterized in submission order
-//    with a strict z < depth test.
+//    shared memory in chunks of 64 records (bulk copies, double-buffered),
+//    rasterized in submission order with a strict z < depth test; a warp
+//    runs the edge tests of a record only at the rows of pixels its box
+//    touches.  The bump reuses the raster's shared memory once it is done.
 // 3. Lights.  In-kernel cull: block min/max reductions give the split
 //    distance and the two slabs' world AABBs (min and max are exact, so the
 //    order of reduction does not matter).  Each thread tests lights tid,
@@ -52,12 +60,10 @@
 
 namespace {
 
-using raster::kChunk;
-using raster::kPix;
-using raster::kStride;
-using raster::kThreads;
 using shade::U_EYE;
 using shade::U_TONEMAP;
+constexpr int kThreads = 512;
+constexpr int kPix = 2;  // pixels a thread: tiles of at most 1024 pixels
 constexpr int kWarps = kThreads / 32;
 constexpr float kBig = 3.0e38f;
 
@@ -102,8 +108,12 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                   int slots, const float* __restrict__ vis, float inv_gamma, float strength,
                   float w2pf, bool hdr_out, float* __restrict__ color, int Hp, int Wp,
                   int* __restrict__ tile_overflow) {
-  __shared__ float4 s_rec4[kChunk * kStride / 4];
-  __shared__ float s_bump[kBump ? bump::kPlanes * kThreads * kPix : 1];
+  // The raster's records and boxes, then the bump's staged planes.
+  constexpr size_t kRasterBytes = sizeof(raster::Smem);
+  constexpr size_t kBumpBytes = kBump ? bump::kPlanes * kThreads * kPix * sizeof(float) : 0;
+  __shared__ __align__(16) unsigned char s_raw[kRasterBytes > kBumpBytes ? kRasterBytes : kBumpBytes];
+  raster::Smem& sm = *reinterpret_cast<raster::Smem*>(s_raw);
+  float* s_bump = reinterpret_cast<float*>(s_raw);
   __shared__ float s_u[32];
   __shared__ float s_red[kWarps][12];
   __shared__ float s_bounds[12];
@@ -120,12 +130,12 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
 
   float px[kPix], py[kPix];
   bool inb[kPix];
-  raster::tile_pixel_centers(ty, tx, tile_h, tile_w, px, py, inb);
+  raster::tile_pixel_centers<kPix, kThreads>(ty, tx, tile_h, tile_w, px, py, inb);
 
   // ---- 1-2. raster the tile's records in submission order ----
   float depth[kPix], nrm[3][kPix], uv[2][kPix], mid[kPix];
-  raster::raster_tile<kBump>(stream, offs[tile], counts[tile], s_rec4, px, py, inb, depth, nrm,
-                             uv, mid);
+  raster::raster_tile<kBump>(stream, offs[tile], counts[tile], sm, (float)((tx + 1) * tile_w),
+                             (float)((ty + 1) * tile_h), px, py, inb, depth, nrm, uv, mid);
 
   // ---- 3. the tile's lights: exact cull against two eye-distance slabs,
   // or the tile's row of the light lists ----
@@ -143,6 +153,7 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
     // Bump the raw normals inside the tile; pixels outside the frame count
     // as background.  (The cull reads only depth and mesh id.)
     const int P = tile_h * tile_w;
+    __syncthreads();  // every thread is done with the raster's records
 #pragma unroll
     for (int j = 0; j < kPix; ++j)
       if (inb[j]) {
@@ -294,7 +305,7 @@ int launch(const int* counts, const int* offs, const float* stream, const float*
            const float* vis, float inv_gamma, float strength, float w2pf, bool hdr_out,
            float* color, int* tile_overflow, cudaStream_t cs) {
   const size_t dyn = (size_t)slots * (8 * sizeof(float) + sizeof(int));
-  if (dyn > 8 * 1024) {  // static + dynamic past 48 KB needs the opt-in
+  if (dyn > 16 * 1024) {  // static (at most 27 KB) + dynamic past 48 KB needs the opt-in
     const cudaError_t e = cudaFuncSetAttribute(fused_tile_kernel<kBump, kAux, kLists>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;

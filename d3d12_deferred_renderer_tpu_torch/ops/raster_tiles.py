@@ -19,8 +19,12 @@ is the wrapper that runs the CUDA kernel (csrc/raster.cu) on CUDA tensors and
 the plain version on CPU tensors.  ``raster_depth`` / ``raster_depth_reference``
 are the same pair for the depth-only raster (the JAX package's
 ``rasterize_depth`` kernels: the shadow map, on 16 x 128 tiles of up to 2048
-pixels), bit-equal to the full raster's depth plane.  The stream variant
-serves every scene: the port's binning always builds the stream.
+pixels), bit-equal to the full raster's depth plane.  The depth kernel cuts
+each tile's records into work items of at most ``records_per_block`` and
+merges them with an atomic minimum (the depth is order-free), which equals
+the serial walk of the plain version under torch.equal (-0.0 comes out as
++0.0).  The stream variant serves every scene: the port's binning always
+builds the stream.
 """
 from __future__ import annotations
 
@@ -155,6 +159,12 @@ raster_tiles.launches = 0
 # The depth-only kernel runs 256 threads of up to 8 pixels a tile: the
 # shadow map's 16 x 128 tiles.
 DEPTH_MAX_TILE_PIXELS = 2048
+# Records of a tile's segment that one block of the depth-only kernel
+# rasterizes (a multiple of the kernel's 64-record chunk); a tile with more
+# splits over several blocks, merged by an atomic minimum (csrc/raster.cu).
+# The fastest of 64, 128 and 256 on the flagship's shadow map on an H100
+# (PERF.md).
+DEPTH_RECORDS_PER_BLOCK = 64
 
 
 def raster_depth_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
@@ -165,9 +175,12 @@ def raster_depth_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) ->
     return tiles_to_image(f.depth, nty, ntx, tile_h, tile_w)
 
 
-def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
+def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
+                 records_per_block: int = DEPTH_RECORDS_PER_BLOCK) -> torch.Tensor:
     """Depth-only tile raster: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see raster_depth_reference for the contract)."""
+    version for CPU tensors (see raster_depth_reference for the contract).
+    records_per_block (tests force it small) cuts the kernel's work items;
+    the depth does not depend on it."""
     if stream.device.type == "cpu":
         return raster_depth_reference(counts, offs, stream, nty=nty, ntx=ntx,
                                       tile_h=tile_h, tile_w=tile_w)
@@ -182,10 +195,12 @@ def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Ten
     )
     if tile_h * tile_w > DEPTH_MAX_TILE_PIXELS:
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's {DEPTH_MAX_TILE_PIXELS}")
+    if records_per_block < 1:
+        raise ValueError(f"records_per_block must be positive, got {records_per_block}")
     depth = torch.empty((nty * tile_h, ntx * tile_w), dtype=F32, device=stream.device)
     err = cuda_build.library().raster_depth_launch(
-        counts.data_ptr(), offs.data_ptr(), stream.data_ptr(), nty, ntx, tile_h, tile_w,
-        depth.data_ptr(), torch.cuda.current_stream(stream.device).cuda_stream,
+        counts.data_ptr(), offs.data_ptr(), stream.data_ptr(), stream.shape[0], nty, ntx, tile_h,
+        tile_w, records_per_block, depth.data_ptr(), torch.cuda.current_stream(stream.device).cuda_stream,
     )
     cuda_build.raise_on_error(err, "raster_depth")
     raster_depth.launches += 1

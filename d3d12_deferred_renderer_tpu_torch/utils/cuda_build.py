@@ -54,8 +54,8 @@ SIGNATURES = {
     "fused_tiles_launch": (P, P, P, P, I, P, I, P, I, I, I, I, P, P, I, P, F, I, F, F, I, I, P, P, P),
     # counts, offs, records, nty, ntx, tile_h, tile_w, planes, stream
     "raster_tiles_launch": (P, P, P, I, I, I, I, P, P),
-    # counts, offs, records, nty, ntx, tile_h, tile_w, depth, stream
-    "raster_depth_launch": (P, P, P, I, I, I, I, P, P),
+    # counts, offs, records, rows, nty, ntx, tile_h, tile_w, records a block, depth, stream
+    "raster_depth_launch": (P, P, P, I, I, I, I, I, I, P, P),
     # planes, n_planes, lights, n_rows, ids, lk, counts, uniforms, nty, ntx,
     # tile_h, tile_w, gamma, hdr, stream
     "shade_tiles_launch": (P, I, P, I, P, I, P, P, I, I, I, I, F, P, P),

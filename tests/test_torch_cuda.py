@@ -283,6 +283,42 @@ def test_depth_raster_kernel_matches_plain(tile):
         assert torch.equal(full[raster_tiles.PLANE_DEPTH], got)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("records_per_block", [16, raster_tiles.DEPTH_RECORDS_PER_BLOCK],
+                         ids=["R16", "R_default"])
+def test_depth_raster_kernel_splits_heavy_tiles(records_per_block):
+    """K3 on the flagship scene's 1024^2 shadow map, whose densest tiles hold
+    thousands of records, so a tile splits over many blocks merged by an
+    atomic minimum: equal to the serial plain version, and with one
+    few records' z set to -0.0, -0.0 where the serial walk keeps it and +0.0
+    (never the bits 0x80000000) in the kernel's depth."""
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CONFIG4, width=1920, height=1080, shadow_map_size=1024)
+    geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=24))
+    state = tp.animate(tp.make_scene(geo, cfg, lights=tp.random_point_lights(16, cfg=cfg, device=dev),
+                                     placement="grid", device=dev), cfg.yaw_per_frame, cfg)
+    scfg = shadows.shadow_bin_config(cfg, geo.num_triangles)
+    tris = shadows.setup_light_view_triangles(state, scfg, shadows.light_view_proj(state.lights.direction))
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, scfg)
+    assert int(b.overflow) == 0 and int(b.counts.max()) > 8 * records_per_block
+    S = cfg.shadow_map_size
+    kw = dict(nty=S // scfg.tile_h, ntx=S // scfg.tile_w, tile_h=scfg.tile_h, tile_w=scfg.tile_w)
+    stream = b.stream.clone()
+    # The first records of the densest tile at z = -0.0: they win their pixels.
+    row = int(b.offs[int(torch.argmax(b.counts))])
+    stream[row : row + 8, 6:9] = -0.0
+    got = raster_tiles.raster_depth(b.counts, b.offs, stream, records_per_block=records_per_block, **kw)
+    ref = raster_tiles.raster_depth_reference(b.counts, b.offs, stream, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    neg_zero = ref.view(torch.int32) == torch.iinfo(torch.int32).min
+    assert bool(neg_zero.any())
+    assert not bool((got.view(torch.int32) == torch.iinfo(torch.int32).min).any())
+    assert 0.05 < float((got < 1.0).double().mean()) < 1.0
+
+
 def _fragments(cfg, dev):
     state = _scene(cfg, dev)
     tris, view_proj = setup_frame_triangles(state, cfg)
