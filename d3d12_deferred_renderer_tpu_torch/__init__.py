@@ -19,7 +19,7 @@ from .calibrate import autotune, autotune_shadow
 from .config import FLAGSHIP_CONFIG, REFERENCE_CONFIG, RendererConfig
 from .convert import arrays_from_state, scene_from_arrays
 from .frame import render, render_gbuffer, render_stats, step_frame
-from .models import build_scene_geometry, load_obj, procedural
+from .models import build_instanced_geometry, build_scene_geometry, load_obj, procedural
 from .scene import (
     Camera,
     GeometryBuffers,
@@ -44,6 +44,7 @@ __all__ = [
     "render_gbuffer",
     "step_frame",
     "build_scene_geometry",
+    "build_instanced_geometry",
     "load_obj",
     "procedural",
     "Camera",

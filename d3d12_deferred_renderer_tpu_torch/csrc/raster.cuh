@@ -53,7 +53,9 @@ constexpr int kThreads = 256;
 constexpr int kPix = 4;       // pixels per thread on screen tiles (at most 1024)
 constexpr int kStride = 32;   // TRI_STRIDE
 constexpr int kChunk = 64;    // records per shared-memory chunk
-constexpr float kBoxMaxArea = 4096.0f;
+// Boxes over this many px^2 are kept at every pixel (see above).  4096,
+// 16384 and 65536 tied within 1.4% on K2, K3 and K6 (PERF.md).
+constexpr float kBoxMaxArea = 16384.0f;
 
 // Record fields (ops/transform.py TRI_*)
 constexpr int TRI_Z0 = 6, TRI_RW0 = 9, TRI_N0 = 12, TRI_UV0 = 21, TRI_MESH_ID = 27,
@@ -180,20 +182,73 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
       : "memory");
 }
 
+// The edge functions of a record: edges (v1->v2), (v2->v0), (v0->v1), e =
+// fma(A, px, B*py) + C, and the top-left flags (ops/raster_ref.edge_coeffs).
+struct Edges {
+  float A[3], B[3], C[3];
+  bool tl[3];
+};
+
+__device__ __forceinline__ void record_edges(const float* r, Edges& E) {
+  const int ea[3] = {1, 2, 0}, eb[3] = {2, 0, 1};
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float ax = r[2 * ea[e]], ay = r[2 * ea[e] + 1];
+    const float bx = r[2 * eb[e]], by = r[2 * eb[e] + 1];
+    E.A[e] = ay - by;
+    E.B[e] = bx - ax;
+    E.C[e] = __fmaf_rn(ax, by, -(bx * ay));
+    const float dx = bx - ax, dy = by - ay;
+    E.tl[e] = (dy == 0.0f && dx > 0.0f) || dy < 0.0f;
+  }
+}
+
+// The edge functions at the pixel centre (px, py); true where they cover it.
+__device__ __forceinline__ bool edge_values(const Edges& E, float px, float py, float (&ev)[3]) {
+  bool cov = true;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    ev[e] = __fmaf_rn(E.A[e], px, E.B[e] * py) + E.C[e];
+    cov = cov && (ev[e] > 0.0f || (ev[e] == 0.0f && E.tl[e]));
+  }
+  return cov;
+}
+
+// The perspective-correct normal and, with kUV, uv of record r at
+// barycentrics (b0, b1, b2).
+template <bool kUV>
+__device__ __forceinline__ void record_attrs(const float* r, float b0, float b1, float b2, float (&n)[3],
+                                             float (&uv)[2]) {
+  const float rw = sum3(b0, b1, b2, r + TRI_RW0, 1);
+  const float inv_rw = 1.0f / (rw == 0.0f ? 1.0f : rw);
+#pragma unroll
+  for (int c3 = 0; c3 < 3; ++c3) n[c3] = sum3(b0, b1, b2, r + TRI_N0 + c3, 3) * inv_rw;
+  if constexpr (kUV) {
+#pragma unroll
+    for (int c2 = 0; c2 < 2; ++c2) uv[c2] = sum3(b0, b1, b2, r + TRI_UV0 + c2, 2) * inv_rw;
+  }
+}
+
+// What raster_tile keeps of each pixel's winner: its depth alone, its
+// stream row (the visibility buffer of the tile raster kernel), or its
+// attributes.
+enum class Out { kDepth, kRow, kAttrs };
+
 // Rasterize records [start, start + n) of `stream` over this thread's
-// pixels.  Outputs: depth (cleared to 1) and, with kAttrs, the
+// pixels.  Outputs: depth (cleared to 1) and, with Out::kAttrs, the
 // perspective-correct normal, with kUV uv (cleared to 0), and the winner's
-// mesh id (-1 background); without kAttrs (depth only) those stay untouched.
+// mesh id (-1 background); with Out::kRow the winner's stream row in
+// win[j] (untouched where no record wins); otherwise those stay untouched.
 // (px_max, py_max) bound the block's pixel coordinates.  Every thread of the
 // block must call it with the same segment (it synchronises the block); sm
 // may be reused once it returns, after a barrier.
-template <bool kUV, int NP, bool kAttrs = true>
+template <bool kUV, int NP, Out kOut = Out::kAttrs>
 __device__ __forceinline__ void raster_tile(const float* __restrict__ stream, int start, int n,
                                             Smem& sm, float px_max, float py_max,
                                             const float (&px)[NP], const float (&py)[NP],
                                             const bool (&inb)[NP], float (&depth)[NP],
                                             float (&nrm)[3][NP], float (&uv)[2][NP],
-                                            float (&mid)[NP]) {
+                                            float (&mid)[NP], int* win = nullptr) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int j = 0; j < NP; ++j) {
@@ -237,45 +292,27 @@ __device__ __forceinline__ void raster_tile(const float* __restrict__ stream, in
       }
       if (!any) continue;  // (a record that is not valid has an empty box)
       const float* r = s_rec + k * kStride;
-      // Edges (v1->v2), (v2->v0), (v0->v1): e = fma(A, px, B*py) + C and
-      // the top-left flag (ops/raster_ref.edge_coeffs).
-      float A[3], B[3], C[3];
-      bool tl[3];
-      const int ea[3] = {1, 2, 0}, eb[3] = {2, 0, 1};
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float ax = r[2 * ea[e]], ay = r[2 * ea[e] + 1];
-        const float bx = r[2 * eb[e]], by = r[2 * eb[e] + 1];
-        A[e] = ay - by;
-        B[e] = bx - ax;
-        C[e] = __fmaf_rn(ax, by, -(bx * ay));
-        const float dx = bx - ax, dy = by - ay;
-        tl[e] = (dy == 0.0f && dx > 0.0f) || dy < 0.0f;
-      }
+      Edges E;
+      record_edges(r, E);
       const float inv_area = 1.0f / r[TRI_AREA];
 #pragma unroll
       for (int j = 0; j < NP; ++j) {
         if (!touch[j] || !inb[j]) continue;
         float ev[3];
-        bool cov = true;
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          ev[e] = __fmaf_rn(A[e], px[j], B[e] * py[j]) + C[e];
-          cov = cov && (ev[e] > 0.0f || (ev[e] == 0.0f && tl[e]));
-        }
-        if (!cov) continue;
+        if (!edge_values(E, px[j], py[j], ev)) continue;
         const float b0 = ev[0] * inv_area, b1 = ev[1] * inv_area, b2 = ev[2] * inv_area;
         const float z = sum3(b0, b1, b2, r + TRI_Z0, 1);
         if (!(z >= 0.0f && z <= 1.0f && z < depth[j])) continue;
         depth[j] = z;
-        if constexpr (!kAttrs) continue;
-        const float rw = sum3(b0, b1, b2, r + TRI_RW0, 1);
-        const float inv_rw = 1.0f / (rw == 0.0f ? 1.0f : rw);
+        if constexpr (kOut == Out::kRow) win[j] = start + c0 + k;
+        if constexpr (kOut != Out::kAttrs) continue;
+        float n3[3], uv2[2];
+        record_attrs<kUV>(r, b0, b1, b2, n3, uv2);
 #pragma unroll
-        for (int c3 = 0; c3 < 3; ++c3) nrm[c3][j] = sum3(b0, b1, b2, r + TRI_N0 + c3, 3) * inv_rw;
+        for (int c3 = 0; c3 < 3; ++c3) nrm[c3][j] = n3[c3];
         if constexpr (kUV) {
 #pragma unroll
-          for (int c2 = 0; c2 < 2; ++c2) uv[c2][j] = sum3(b0, b1, b2, r + TRI_UV0 + c2, 2) * inv_rw;
+          for (int c2 = 0; c2 < 2; ++c2) uv[c2][j] = uv2[c2];
         }
         mid[j] = r[TRI_MESH_ID];
       }

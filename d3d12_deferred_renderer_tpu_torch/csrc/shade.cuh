@@ -3,7 +3,10 @@
 // is shared by the TPU kernels.  Its plain PyTorch version is
 // ops/lighting_cuda.py:shade_pixels_reference (world_from_depth there too),
 // and the arithmetic below follows it operation for operation, in the same
-// association order.
+// association order.  The point-light loop is split into a pixel's Surface
+// and one light's term (point_light), so that a kernel may lay the loop out
+// its own way (shade.cu takes two lights at a time) and still add the terms
+// to the sum one by one, in light order: the same bits.
 #pragma once
 
 #include "common.cuh"
@@ -84,6 +87,66 @@ __device__ __forceinline__ void directional(const float* s_u, const float (&N)[3
   }
 }
 
+// What the point-light loop reads of a pixel besides its position:
+// the view vector and the terms of its material that no light changes.
+struct Surface {
+  float V[3], N[3], alb[3], metal, a2, kk, ndv, g1, f0[3];
+};
+
+__device__ __forceinline__ void surface(const float* s_u, const float (&wpos)[3], const float (&N)[3],
+                                        const float (&alb)[3], float metal, float rough, Surface& sf) {
+  view_dir(s_u, wpos, sf.V);
+  const float alpha = maxp(rough * rough, 1e-3f);
+  sf.a2 = alpha * alpha;
+  sf.kk = ((rough + 1.0f) * (rough + 1.0f)) / 8.0f;
+  sf.ndv = maxp((N[0] * sf.V[0] + N[1] * sf.V[1]) + N[2] * sf.V[2], 1e-4f);
+  sf.g1 = sf.ndv / (sf.ndv * (1.0f - sf.kk) + sf.kk);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    sf.N[c] = N[c];
+    sf.alb[c] = alb[c];
+    sf.f0[c] = 0.04f * (1.0f - metal) + alb[c] * metal;
+  }
+  sf.metal = metal;
+}
+
+// The GGX term of one point light at the pixel, the summand of the loop:
+// lr is the light's row (pos, radius, color, intensity) and inv_r2 =
+// 1 / (radius * radius), which does not depend on the pixel.
+__device__ __forceinline__ void point_light(const Surface& sf, const float (&wpos)[3], const float* lr,
+                                            float inv_r2, float (&term)[3]) {
+  const float t0 = lr[0] - wpos[0], t1 = lr[1] - wpos[1], t2 = lr[2] - wpos[2];
+  const float dl2 = (t0 * t0 + t1 * t1) + t2 * t2;
+  const float inv_d = rsqrtf(maxp(dl2, 1e-12f));
+  const float L0 = t0 * inv_d, L1 = t1 * inv_d, L2 = t2 * inv_d;
+  const float q = dl2 * inv_r2;
+  const float wq = clampp(1.0f - q * q, 0.0f, 1.0f);
+  const float window = wq * wq;
+  const float atten = lr[7] * window / (dl2 + 1.0f);
+  float H0 = sf.V[0] + L0, H1 = sf.V[1] + L1, H2 = sf.V[2] + L2;
+  const float ih = rsqrt_guarded((H0 * H0 + H1 * H1) + H2 * H2, 1e-38f);
+  H0 *= ih, H1 *= ih, H2 *= ih;
+  const float ndl = maxp((sf.N[0] * L0 + sf.N[1] * L1) + sf.N[2] * L2, 0.0f);
+  const float ndh = maxp((sf.N[0] * H0 + sf.N[1] * H1) + sf.N[2] * H2, 0.0f);
+  const float vdh = maxp((sf.V[0] * H0 + sf.V[1] * H1) + sf.V[2] * H2, 0.0f);
+  const float denom = ndh * ndh * (sf.a2 - 1.0f) + 1.0f;
+  const float D = sf.a2 / (kPi * denom * denom);
+  const float g2 = ndl / (ndl * (1.0f - sf.kk) + sf.kk + 1e-7f);
+  const float dg = D * (sf.g1 * g2);
+  const float spec_den = 4.0f * sf.ndv * ndl + 1e-4f;
+  const float u5 = 1.0f - vdh;
+  const float u5sq = u5 * u5;
+  const float f5 = u5sq * u5sq * u5;
+  const float scale = ndl * atten;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float F = sf.f0[c] + (1.0f - sf.f0[c]) * f5;
+    const float spec = dg * F / spec_den;
+    const float diffuse = (1.0f - F) * (1.0f - sf.metal) * sf.alb[c] * kInvPi;
+    term[c] = (diffuse + spec) * scale * lr[4 + c];
+  }
+}
+
 // Linear HDR of one covered pixel: the directional term (left out with
 // kDirect off: the deferred-directional split adds it later), the
 // point-light GGX loop over the n_live rows of s_lrow (8 floats each: pos,
@@ -93,52 +156,17 @@ __device__ __forceinline__ void shade_pixel(const float* s_u, const float (&wpos
                                             const float (&N)[3], const float (&alb)[3],
                                             float metal, float rough, float vis,
                                             const float* s_lrow, int n_live, float (&hdr)[3]) {
-  float V[3];
-  view_dir(s_u, wpos, V);
-  const float alpha = maxp(rough * rough, 1e-3f);
-  const float a2 = alpha * alpha;
-  const float kk = ((rough + 1.0f) * (rough + 1.0f)) / 8.0f;
-  const float ndv = maxp((N[0] * V[0] + N[1] * V[1]) + N[2] * V[2], 1e-4f);
-  const float g1 = ndv / (ndv * (1.0f - kk) + kk);
-  float f0[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) f0[c] = 0.04f * (1.0f - metal) + alb[c] * metal;
+  Surface sf;
+  surface(s_u, wpos, N, alb, metal, rough, sf);
   float acc[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (kDirect) directional(s_u, N, V, alb, metal, rough, vis, acc);
+  if constexpr (kDirect) directional(s_u, N, sf.V, alb, metal, rough, vis, acc);
   // Point lights, in the order of s_lrow (ascending light id).
   for (int s = 0; s < n_live; ++s) {
     const float* lr = s_lrow + 8 * s;
-    const float t0 = lr[0] - wpos[0], t1 = lr[1] - wpos[1], t2 = lr[2] - wpos[2];
-    const float dl2 = (t0 * t0 + t1 * t1) + t2 * t2;
-    const float inv_d = rsqrtf(maxp(dl2, 1e-12f));
-    const float L0 = t0 * inv_d, L1 = t1 * inv_d, L2 = t2 * inv_d;
-    const float inv_r2 = 1.0f / (lr[3] * lr[3]);
-    const float q = dl2 * inv_r2;
-    const float wq = clampp(1.0f - q * q, 0.0f, 1.0f);
-    const float window = wq * wq;
-    const float atten = lr[7] * window / (dl2 + 1.0f);
-    float H0 = V[0] + L0, H1 = V[1] + L1, H2 = V[2] + L2;
-    const float ih = rsqrt_guarded((H0 * H0 + H1 * H1) + H2 * H2, 1e-38f);
-    H0 *= ih, H1 *= ih, H2 *= ih;
-    const float ndl = maxp((N[0] * L0 + N[1] * L1) + N[2] * L2, 0.0f);
-    const float ndh = maxp((N[0] * H0 + N[1] * H1) + N[2] * H2, 0.0f);
-    const float vdh = maxp((V[0] * H0 + V[1] * H1) + V[2] * H2, 0.0f);
-    const float denom = ndh * ndh * (a2 - 1.0f) + 1.0f;
-    const float D = a2 / (kPi * denom * denom);
-    const float g2 = ndl / (ndl * (1.0f - kk) + kk + 1e-7f);
-    const float dg = D * (g1 * g2);
-    const float spec_den = 4.0f * ndv * ndl + 1e-4f;
-    const float u5 = 1.0f - vdh;
-    const float u5sq = u5 * u5;
-    const float f5 = u5sq * u5sq * u5;
-    const float scale = ndl * atten;
+    float t[3];
+    point_light(sf, wpos, lr, 1.0f / (lr[3] * lr[3]), t);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float F = f0[c] + (1.0f - f0[c]) * f5;
-      const float spec = dg * F / spec_den;
-      const float diffuse = (1.0f - F) * (1.0f - metal) * alb[c] * kInvPi;
-      acc[c] = acc[c] + (diffuse + spec) * scale * lr[4 + c];
-    }
+    for (int c = 0; c < 3; ++c) acc[c] = acc[c] + t[c];
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) hdr[c] = acc[c] + s_u[U_AMBIENT] * alb[c];

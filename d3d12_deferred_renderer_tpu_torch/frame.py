@@ -117,11 +117,52 @@ def render_stats(state: SceneState, cfg: RendererConfig):
     return post.to_uint8(color), {"overflow": overflow}
 
 
+OVERFLOW_WARNING = (
+    "[renderer] WARNING: per-tile capacity overflow on {n} tiles — "
+    "triangles or lights were dropped this frame; raise "
+    "max_tris_per_tile / max_lights_per_tile / bin_max_big."
+)
+
+# Overflow counts of earlier frames on their way to the host: (event, pinned
+# int32) pairs, read once the event has completed.  Module state, because
+# render(state, cfg) has no object of its own that outlives a frame (the
+# JAX package prints from inside the compiled program instead).
+_pending_overflow = []
+
+
+def _warn_overflow(overflow: torch.Tensor) -> None:
+    """Print OVERFLOW_WARNING (the JAX package's text, once per offending
+    frame) when a frame's overflow count is above 0, without ever waiting
+    for the device.  A count on the CPU is read at once.  A count on the card
+    is copied without blocking into pinned host memory behind an event, and
+    read by a later call once its event has completed; a count whose event
+    has not completed stays pending, so the last frame's warning is printed
+    only by a later render call."""
+    if overflow.device.type != "cuda":
+        if int(overflow) > 0:
+            print(OVERFLOW_WARNING.format(n=int(overflow)), flush=True)
+        return
+    while _pending_overflow and _pending_overflow[0][0].query():
+        count = int(_pending_overflow.pop(0)[1])
+        if count > 0:
+            print(OVERFLOW_WARNING.format(n=count), flush=True)
+    host = torch.empty(overflow.shape, dtype=overflow.dtype, pin_memory=True)
+    host.copy_(overflow, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    _pending_overflow.append((done, host))
+
+
 def render(state: SceneState, cfg: RendererConfig) -> torch.Tensor:
-    """One frame -> display-ready uint8 [H, W, 3].  The overflow count stays
-    on the device (render_stats returns it): a host-side warning would
-    synchronise every frame (ROADMAP.md Queue 1 item 9)."""
-    return render_stats(state, cfg)[0]
+    """One frame -> display-ready uint8 [H, W, 3].  With cfg.overflow_warn
+    it prints a warning for a frame whose capacity caps overflowed (see
+    render_stats for the count itself): at once on the CPU, and for a frame
+    on the card at a later render call, once the frame has finished
+    (_warn_overflow)."""
+    frame, stats = render_stats(state, cfg)
+    if cfg.overflow_warn:
+        _warn_overflow(stats["overflow"])
+    return frame
 
 
 def render_gbuffer(state: SceneState, cfg: RendererConfig) -> GBuffer:

@@ -19,11 +19,15 @@ is the wrapper that runs the CUDA kernel (csrc/raster.cu) on CUDA tensors and
 the plain version on CPU tensors.  ``raster_depth`` / ``raster_depth_reference``
 are the same pair for the depth-only raster (the JAX package's
 ``rasterize_depth`` kernels: the shadow map, on 16 x 128 tiles of up to 2048
-pixels), bit-equal to the full raster's depth plane.  The depth kernel cuts
-each tile's records into work items of at most ``records_per_block`` and
-merges them with an atomic minimum (the depth is order-free), which equals
-the serial walk of the plain version under torch.equal (-0.0 comes out as
-+0.0).  The stream variant serves every scene: the port's binning always
+pixels), bit-equal to the full raster's depth plane.  Both kernels cut each
+tile's records into work items of at most ``records_per_block``, one block
+each.  The depth kernel merges them with an atomic minimum (the depth is
+order-free), which equals the serial walk of the plain version under
+torch.equal (-0.0 comes out as +0.0).  The planes kernel merges them in a
+visibility buffer: the atomic minimum of (depth, stream row) keys picks
+each pixel's winning record, which a last pass evaluates again at the
+pixel, so all 8 planes are bit-equal to the serial walk's, the depth's sign
+included.  The stream variant serves every scene: the port's binning always
 builds the stream.
 """
 from __future__ import annotations
@@ -126,9 +130,19 @@ def raster_tiles_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) ->
     return tiles_to_image(planes, nty, ntx, tile_h, tile_w)
 
 
-def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
+# Records of a tile's segment that one block of the tile raster kernel
+# rasterizes; a tile with more splits over several blocks, merged in a
+# visibility buffer (csrc/raster.cu).  The fastest of 16, 32, 64 and 128 on
+# the staged flagship on an H100 (PERF.md).
+TILE_RECORDS_PER_BLOCK = 32
+
+
+def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
+                 records_per_block: int = TILE_RECORDS_PER_BLOCK) -> torch.Tensor:
     """Tile raster: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (see raster_tiles_reference for the contract)."""
+    CPU tensors (see raster_tiles_reference for the contract).
+    records_per_block (tests force it small) cuts the kernel's work items;
+    the planes do not depend on it."""
     if stream.device.type == "cpu":
         return raster_tiles_reference(counts, offs, stream, nty=nty, ntx=ntx,
                                       tile_h=tile_h, tile_w=tile_w)
@@ -143,10 +157,15 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Ten
     )
     if tile_h * tile_w > 1024:
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's 1024")
-    planes = torch.empty((NUM_PLANES, nty * tile_h, ntx * tile_w), dtype=F32, device=stream.device)
+    if records_per_block < 1:
+        raise ValueError(f"records_per_block must be positive, got {records_per_block}")
+    Hp, Wp = nty * tile_h, ntx * tile_w
+    planes = torch.empty((NUM_PLANES, Hp, Wp), dtype=F32, device=stream.device)
+    keys = torch.empty((Hp * Wp,), dtype=torch.int64, device=stream.device)  # the visibility buffer
     err = cuda_build.library().raster_tiles_launch(
-        counts.data_ptr(), offs.data_ptr(), stream.data_ptr(), nty, ntx, tile_h, tile_w,
-        planes.data_ptr(), torch.cuda.current_stream(stream.device).cuda_stream,
+        counts.data_ptr(), offs.data_ptr(), stream.data_ptr(), stream.shape[0], nty, ntx, tile_h, tile_w,
+        records_per_block, keys.data_ptr(), planes.data_ptr(),
+        torch.cuda.current_stream(stream.device).cuda_stream,
     )
     cuda_build.raise_on_error(err, "raster_tiles")
     raster_tiles.launches += 1

@@ -130,6 +130,8 @@ class GeometryBuffers:
     def from_host(geo: SceneGeometry, device=None) -> "GeometryBuffers":
         device = _dev(device)
         idx = geo.indices
+        if geo.vertex_source is not None:  # instanced: logical vertex -> storage row
+            idx = geo.vertex_source[idx]
         T = idx.shape[0] // 3
 
         def cols(a, c):

@@ -116,8 +116,8 @@ def _binned(cfg, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [(256, 64), (200, 60)], ids=["256x64", "200x60_padded"])
 def test_raster_kernel_matches_plain(size):
-    """Depth, mesh id and pad planes bit-equal; normal and uv bit-equal or
-    within 2e-6."""
+    """All 8 planes bit-equal (compared as int32: the depth's sign of zero
+    too)."""
     dev = _cuda()
     cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=size[0], height=size[1], fused=False)
     _, binned, _ = _binned(cfg, dev)
@@ -127,16 +127,60 @@ def test_raster_kernel_matches_plain(size):
     ref = raster_tiles.raster_tiles_reference(binned.counts, binned.offs, binned.stream, **kw)
     torch.cuda.synchronize()
     assert raster_tiles.raster_tiles.launches == before + 1
-    for p in (raster_tiles.PLANE_DEPTH, raster_tiles.PLANE_MID, raster_tiles.PLANE_PAD):
-        assert torch.equal(got[p], ref[p]), p
-    assert float((got - ref).abs().max()) <= 2e-6
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert float((got[raster_tiles.PLANE_MID] >= 0).double().mean()) > 0.2
+
+
+def _ties_and_signed_zeros(counts, offs, stream):
+    """The binned records with, in each tile's segment, the first two
+    records at z = -0.0 and the third at +0.0, then copies of its first
+    eight records (another mesh id, the third at -0.0) after the segment:
+    equal-z ties that the later copy must lose, -0.0 and +0.0 winners."""
+    c, o, st = counts.cpu(), offs.cpu(), stream.cpu()
+    segs = []
+    for t in range(c.numel()):
+        seg = st[int(o[t]) : int(o[t]) + int(c[t])].clone()
+        seg[:2, 6:9] = -0.0
+        seg[2:3, 6:9] = 0.0
+        dup = seg[:8].clone()
+        dup[:, 27] += 1000.0
+        dup[2:3, 6:9] = -0.0
+        segs.append(torch.cat([seg, dup]))
+    n = torch.tensor([s.shape[0] for s in segs], dtype=torch.int32)
+    offs2 = torch.cat([torch.zeros(1, dtype=torch.int32), torch.cumsum(n, 0).to(torch.int32)])
+    return n.to(stream.device), offs2.to(stream.device), torch.cat(segs).to(stream.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("records_per_block", [8, raster_tiles.TILE_RECORDS_PER_BLOCK], ids=["R8", "R_default"])
+def test_raster_kernel_visibility_buffer_is_exact(records_per_block):
+    """K6's work items merged in its visibility buffer: all 8 planes
+    bit-equal to the serial plain version with a tile's records split over
+    many blocks, on records with equal-z ties and signed-zero depths (the
+    serial walk's -0.0 winners stay -0.0), and the depth plane equal to the
+    depth kernel's (torch.equal: -0.0 == +0.0)."""
+    dev = _cuda()
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=64, fused=False)
+    _, binned, _ = _binned(cfg, dev)
+    counts, offs, stream = _ties_and_signed_zeros(binned.counts, binned.offs, binned.stream)
+    assert int(counts.max()) > 32  # the densest tile splits at R = 8
+    kw = dict(nty=8, ntx=2, tile_h=8, tile_w=128)
+    got = raster_tiles.raster_tiles(counts, offs, stream, **kw, records_per_block=records_per_block)
+    ref = raster_tiles.raster_tiles_reference(counts, offs, stream, **kw)
+    depth = raster_tiles.raster_depth(counts, offs, stream, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    bits = ref[raster_tiles.PLANE_DEPTH].view(torch.int32)
+    assert bool((bits == torch.iinfo(torch.int32).min).any()) and bool((bits == 0).any())
+    assert not bool((ref[raster_tiles.PLANE_MID] >= 1000).any())  # the later copies lose
+    assert torch.equal(got[raster_tiles.PLANE_DEPTH], depth)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("vis", [False, True], ids=["no_vis", "vis"])
 def test_shade_kernel_matches_plain(vis):
-    """Linear HDR within rtol 2e-4, atol 2e-5 (the JAX kernel's contract)."""
+    """Linear HDR bit-equal to the plain version (the JAX kernel's contract
+    is rtol 2e-4, atol 2e-5)."""
     dev = _cuda()
     cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=64, fused=False)
     state = _scene(cfg, dev)
@@ -159,7 +203,37 @@ def test_shade_kernel_matches_plain(vis):
     torch.cuda.synchronize()
     assert lighting_cuda.shade_tiles.launches == before + 1
     assert int(tl.counts.max()) > 0
-    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vis", [False, True], ids=["no_vis", "vis"])
+def test_shade_kernel_edge_tiles(vis):
+    """K7 bit-equal to its plain version: a tile at
+    the 128-light cap, tiles with no light, warps of background only."""
+    dev = _cuda()
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=64, fused=False)
+    state = _scene(cfg, dev, n_lights=160, radius=50.0)
+    gb = tp.render_gbuffer(state, cfg)
+    gb = gb._replace(depth=gb.depth.clone())
+    gb.depth[:2] = 1.0  # the first two rows of the top tiles: background warps
+    _, view_proj, _ = frame_matrices(state, cfg)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    tl = lighting.cull_lights_to_tiles(gb.depth, state.lights, cfg, view_proj, tile=(8, 128),
+                                       max_per_tile=128, inv_vp=inv_vp)
+    counts = tl.counts.reshape(16).clone()
+    assert int(counts.max()) == 128
+    counts[3] = counts[10] = 0
+    visp = torch.rand((64, 256), generator=torch.Generator().manual_seed(3)).to(dev) if vis else None
+    args = (lighting_cuda.gbuffer_planes(gb, 64, 256, visp), lighting_cuda.build_light_table(state.lights),
+            tl.indices.reshape(16, -1), counts,
+            lighting_cuda.make_uniforms(state.camera.eye, state.lights, cfg, inv_vp, 256, 64))
+    kw = dict(nty=8, ntx=2, tile_h=8, tile_w=128, gamma=cfg.gamma)
+    ref = lighting_cuda.shade_tiles_reference(*args, **kw)
+    got = lighting_cuda.shade_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert float(ref.abs().amax()) > 0.0
 
 
 @pytest.mark.cuda
@@ -560,3 +634,26 @@ def test_row_scatter_kernel_matches_plain(n):
     torch.cuda.synchronize()
     assert scatter.row_scatter.launches == before + 1
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_overflow_warning_on_the_card(capsys):
+    """render on the card warns of a frame's overflow at a later render
+    call, without synchronising on the frame: two frames that overflow, the
+    first frame's message after the second call (the first frame finished
+    in between), and none while a frame is still pending."""
+    dev = _cuda()
+    cfg = dataclasses.replace(tp.REFERENCE_CONFIG, width=256, height=64, max_tris_per_tile=1)
+    geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4, rings=8, segments=16))
+    state = tp.make_scene(geo, cfg, placement="grid", device=dev)
+    overflow = int(tp.render_stats(state, cfg)[1]["overflow"])
+    assert overflow > 0
+    torch.cuda.synchronize()
+    tp.frame._pending_overflow.clear()
+    capsys.readouterr()
+    tp.render(state, cfg)
+    assert capsys.readouterr().out == ""
+    torch.cuda.synchronize()
+    tp.render(state, cfg)
+    assert capsys.readouterr().out == tp.frame.OVERFLOW_WARNING.format(n=overflow) + "\n"
+    assert len(tp.frame._pending_overflow) == 1

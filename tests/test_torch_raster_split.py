@@ -16,6 +16,20 @@
    equals the serial raster_depth_reference under torch.equal at R = 8, on
    a shadow map whose densest tile starts with records at z = -0.0, and the
    same merge without the canonicalisation does not.
+3. The tile raster kernel's visibility buffer is exact.  A plain model of
+   it rasterizes each work item of at most R records keeping each pixel's
+   winning stream row, merges int64 keys (bits(z + 0.0) << 32 | row) by
+   scatter_reduce "amin" from the background key, and evaluates the winner
+   again at each pixel; all 8 planes equal raster_tiles_reference bit for
+   bit (as int32), on adversarial records (coincident triangles with equal
+   z, z = -0.0 and +0.0 in both orders, z = 1.0, NaN and out-of-range z,
+   near-plane-clipped records over the box cap) and on a small flagship
+   frame.
+4. The depth plane's sign of zero cannot change a frame.  The depth kernel
+   writes +0.0 where the serial walk keeps -0.0, so the passes that read
+   depth must not tell them apart: the light cull's lists, counts and
+   overflow and PCF's visibility (sparse and dense) are identical for a
+   depth plane with -0.0 and with +0.0 at a set of covered pixels.
 """
 import dataclasses
 
@@ -24,11 +38,11 @@ import pytest
 import torch
 
 import d3d12_deferred_renderer_tpu_torch as tp
-from d3d12_deferred_renderer_tpu_torch.ops import raster_tiles, shadows
+from d3d12_deferred_renderer_tpu_torch.ops import lighting, raster_tiles, shadows
 from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
-from d3d12_deferred_renderer_tpu_torch.ops.raster_ref import triangle_fragments
+from d3d12_deferred_renderer_tpu_torch.ops.raster_ref import perspective_attr, triangle_fragments
 from d3d12_deferred_renderer_tpu_torch.ops.transform import (
-    TRI_AREA, TRI_STRIDE, TRI_VALID, TRI_Z0, setup_frame_triangles,
+    TRI_AREA, TRI_MESH_ID, TRI_N0, TRI_RW0, TRI_STRIDE, TRI_UV0, TRI_VALID, TRI_Z0, setup_frame_triangles,
 )
 from d3d12_deferred_renderer_tpu_torch.xmath import fma
 
@@ -58,7 +72,7 @@ def record_box(rec: torch.Tensor, px_max: float, py_max: float) -> torch.Tensor:
                          + (bxay.abs() + c.abs()))
     m = torch.fmax(torch.ones_like(err), 2.0 * (2.0**-22 * err) * torch.fmax(w, h) / area_lo)
     box = torch.stack([xmin - m, xmax + m, ymin - m, ymax + m], 1)
-    keep_all = ~((area_lo > 0.0) & (w * h <= 4096.0) & (m < 1e30))
+    keep_all = ~((area_lo > 0.0) & (w * h <= 16384.0) & (m < 1e30))  # raster.cuh kBoxMaxArea
     box[keep_all] = torch.tensor([-INF, INF, -INF, INF])
     box[~(rec[:, TRI_VALID] > 0.0)] = torch.tensor([INF, -INF, INF, -INF])
     return box
@@ -143,22 +157,23 @@ def test_rejection_is_conservative_on_random_records(tile):
 @pytest.fixture(scope="module")
 def flagship_small():
     """A small flagship frame (256x64) and its 256^2 shadow map on the CPU:
-    (frame binning, frame config, shadow binning, shadow config)."""
+    (frame binning, frame config, shadow binning, shadow config, scene
+    state, view-projection)."""
     cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=64, fused=True, shadows=True,
                               shadow_map_size=256)
     geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4, rings=8, segments=16))
     state = tp.animate(tp.make_scene(geo, cfg, lights=tp.random_point_lights(8, cfg=cfg, device="cpu"),
                                      placement="grid", device="cpu"), cfg.yaw_per_frame, cfg)
-    tris, _ = setup_frame_triangles(state, cfg)
+    tris, view_proj = setup_frame_triangles(state, cfg)
     scfg = shadows.shadow_bin_config(cfg, geo.num_triangles)
     stris = shadows.setup_light_view_triangles(state, scfg, shadows.light_view_proj(state.lights.direction))
     return (bin_triangles(tris.packed, tris.aabb, tris.valid, cfg), cfg,
-            bin_triangles(stris.packed, stris.aabb, stris.valid, scfg), scfg)
+            bin_triangles(stris.packed, stris.aabb, stris.valid, scfg), scfg, state, view_proj)
 
 
 @pytest.mark.parametrize("which", ["frame", "shadow_map"])
 def test_rejection_is_conservative_on_a_frame(flagship_small, which):
-    b, cfg = flagship_small[:2] if which == "frame" else flagship_small[2:]
+    b, cfg = flagship_small[:2] if which == "frame" else flagship_small[2:4]
     ntx = -(-cfg.width // cfg.tile_w)
     skipped = pairs = 0
     for t in range(b.counts.numel()):
@@ -173,17 +188,24 @@ def test_rejection_is_conservative_on_a_frame(flagship_small, which):
     assert pairs > 0 and skipped / pairs > 0.5
 
 
+def work_items(counts, offs, R):
+    """The kernels' work items, at most R records of a tile's segment each,
+    in (tile, first record) order -> (tile [N] long, records [N] int32,
+    first stream row [N] int32)."""
+    items = [(t, k0) for t in range(counts.numel()) for k0 in range(0, int(counts[t]), R)]
+    tile = torch.tensor([t for t, _ in items], dtype=torch.long)
+    k0 = torch.tensor([k for _, k in items], dtype=torch.int32)
+    return tile, torch.minimum(counts[tile] - k0, torch.tensor(R, dtype=torch.int32)), offs[tile] + k0
+
+
 def split_depth_model(counts, offs, stream, *, nty, ntx, tile_h, tile_w, R, canonical=True):
     """Plain model of the depth kernel's split: every work item of at most R
     records rasterized alone (raster_tile_pixels), its depth with -0.0 made
     +0.0 (unless canonical is False), merged into 1.0 by the minimum of the
     bits as unsigned ints -> depth [Hp, Wp]."""
     NT, P = nty * ntx, tile_h * tile_w
-    items = [(t, k0) for t in range(NT) for k0 in range(0, int(counts[t]), R)]
-    tile = torch.tensor([t for t, _ in items], dtype=torch.long)
-    k0 = torch.tensor([k for _, k in items], dtype=torch.int32)
-    icounts = torch.minimum(counts[tile] - k0, torch.tensor(R, dtype=torch.int32))
-    ioffs = torch.cat([offs[tile] + k0, offs[-1:]])
+    tile, icounts, first = work_items(counts, offs, R)
+    ioffs = torch.cat([first, offs[-1:]])
     px, py = raster_tiles.tile_pixels(nty, ntx, tile_h, tile_w, "cpu")
     d = raster_tiles.raster_tile_pixels(icounts, ioffs, stream, px[tile], py[tile], attrs=False).depth
     if canonical:
@@ -197,7 +219,7 @@ def split_depth_model(counts, offs, stream, *, nty, ntx, tile_h, tile_w, R, cano
 
 
 def test_split_depth_model_equals_serial_walk(flagship_small):
-    b, scfg = flagship_small[2:]
+    b, scfg = flagship_small[2:4]
     R = 8
     assert int(b.counts.max()) > 4 * R  # the densest tiles split into several items
     stream = b.stream.clone()
@@ -214,3 +236,134 @@ def test_split_depth_model_equals_serial_walk(flagship_small):
     # Without the canonicalisation -0.0's bits sort above 1.0 and lose.
     raw = split_depth_model(b.counts, b.offs, stream, R=R, canonical=False, **kw)
     assert not torch.equal(raw, serial) and bool((raw[neg_zero] > 0.0).all())
+
+
+@pytest.mark.parametrize("consumer", ["light_cull", "pcf_sparse", "pcf_dense"])
+def test_sign_of_zero_depth_changes_nothing(flagship_small, consumer):
+    b, cfg, _, _, state, view_proj = flagship_small
+    kw = dict(nty=-(-cfg.height // cfg.tile_h), ntx=-(-cfg.width // cfg.tile_w),
+              tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    depth = raster_tiles.raster_depth_reference(b.counts, b.offs, b.stream, **kw)[: cfg.height, : cfg.width]
+    covered = torch.nonzero((depth < 1.0).flatten()).flatten()
+    assert covered.numel() > 1000
+    planes = []
+    for zero in (-0.0, 0.0):  # every 5th covered pixel at a signed zero
+        d = depth.clone().flatten()
+        d[covered[::5]] = zero
+        planes.append(d.reshape(depth.shape))
+    assert not torch.equal(planes[0].view(torch.int32), planes[1].view(torch.int32))
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    if consumer == "light_cull":
+        L = state.lights.num_point
+        out = [lighting.cull_lights_to_tiles(d, state.lights, cfg, view_proj, tile=(cfg.tile_h, cfg.tile_w),
+                                             max_per_tile=L, inv_vp=inv_vp) for d in planes]
+        assert int(out[0].counts.sum()) > 0
+        for a, c in zip(out[0], out[1]):
+            assert torch.equal(a, c)
+    else:
+        pcfg = cfg if consumer == "pcf_sparse" else dataclasses.replace(cfg, shadow_tiles_cap=0)
+        rng = np.random.default_rng(5)
+        shadow = torch.from_numpy(rng.uniform(0.0, 1.0, (cfg.shadow_map_size,) * 2).astype(np.float32))
+        lvp = shadows.light_view_proj(state.lights.direction)
+        out = [shadows.shadow_visibility(d, view_proj, shadow, lvp, pcfg, return_overflow=True, inv_vp=inv_vp)
+               for d in planes]
+        vis = [v for v, _ in out]
+        assert torch.equal(vis[0].view(torch.int32), vis[1].view(torch.int32))
+        assert torch.equal(out[0][1], out[1][1])
+        assert 0.0 < float(vis[0].mean()) < 1.0
+
+
+NO_WINNER = (ONE_BITS << 32) | 0xFFFFFFFF  # the kernel's background key
+
+
+def visbuf_planes_model(counts, offs, stream, *, nty, ntx, tile_h, tile_w, R):
+    """Plain model of the tile raster kernel's visibility buffer: every work
+    item of at most R records walked alone in submission order, keeping each
+    pixel's least z and its stream row; keys (bits(z + 0.0) << 32) | row
+    merged by a minimum from NO_WINNER; the winner evaluated again at its
+    pixel -> planes [8, Hp, Wp]."""
+    NT, P = nty * ntx, tile_h * tile_w
+    tile, icounts, first = work_items(counts, offs, R)
+    first = first.long()
+    px, py = raster_tiles.tile_pixels(nty, ntx, tile_h, tile_w, "cpu")
+    best = torch.ones((tile.numel(), P), dtype=F32)
+    row = torch.zeros((tile.numel(), P), dtype=torch.long)
+    for k in range(int(icounts.max())):
+        rows = torch.clamp(first + k, max=stream.shape[0] - 1)
+        rec = stream[rows]
+        covered, z, _ = triangle_fragments(rec, px[tile], py[tile])
+        ok = (rec[:, TRI_VALID : TRI_VALID + 1] > 0.0) & (k < icounts)[:, None]
+        passes = covered & ok & (z >= 0.0) & (z <= 1.0) & (z < best)
+        best = torch.where(passes, z, best)
+        row = torch.where(passes, rows[:, None], row)
+    d = best + 0.0
+    key = torch.where(d < 1.0, ((d.view(torch.int32).long() & 0xFFFFFFFF) << 32) | row, NO_WINNER)
+    out = torch.full((NT, P), NO_WINNER, dtype=torch.long)
+    out.scatter_reduce_(0, tile[:, None].expand(-1, P), key, reduce="amin")
+    hit = out != NO_WINNER
+    rec = stream[torch.where(hit, out & 0xFFFFFFFF, 0)]  # [NT, P, 32]
+    _, z, bs = triangle_fragments(rec, px[..., None], py[..., None])
+    attrs = [perspective_attr(rec, bs, TRI_N0 + c, 3) for c in range(3)]
+    attrs += [perspective_attr(rec, bs, TRI_UV0 + c, 2) for c in range(2)]
+    planes = [torch.where(hit, z[..., 0], 1.0)]
+    planes += [torch.where(hit, a[..., 0], 0.0) for a in attrs]
+    planes += [torch.where(hit, rec[..., TRI_MESH_ID], -1.0), torch.zeros((NT, P), dtype=F32)]
+    return raster_tiles.tiles_to_image(torch.stack(planes), nty, ntx, tile_h, tile_w)
+
+
+def adversarial_stream(rng, nty, ntx, tile_h, tile_w, n=40):
+    """Binned records [counts, offs, stream] whose winners the visibility
+    buffer could get wrong: each tile's segment holds random records (the
+    near-plane regime among them), later copies of some with another mesh
+    id (equal z), coincident pairs at z = -0.0 then +0.0 and at +0.0 then
+    -0.0, and records at z = 1.0, NaN and out of [0, 1]."""
+    segs = []
+    for t in range(nty * ntx):
+        ty, tx = divmod(t, ntx)
+        rec = random_records(rng, n, tx * tile_w + tile_w / 2, ty * tile_h + tile_h / 2)
+        rec[:, TRI_RW0 : TRI_RW0 + 3] = torch.from_numpy(rng.uniform(0.2, 2.0, (n, 3)).astype(np.float32))
+        rec[:, TRI_N0 : TRI_UV0 + 6] = torch.from_numpy(rng.uniform(-1, 1, (n, 15)).astype(np.float32))
+        extra = []
+        for dx, zeros in ((0.0, (-0.0, 0.0)), (64.0, (0.0, -0.0))):  # coincident, both signs of zero
+            x, y = tx * tile_w + dx, ty * tile_h
+            pair = random_records(rng, 1, x, y).repeat(2, 1)
+            pair[:, 0:6] = torch.tensor([x - 5.0, y - 3.0, x + 60.0, y - 9.0, x + 25.0, y + 20.0])
+            pair[:, TRI_AREA] = 65.0 * 23.0 - (-6.0) * 30.0  # positive winding
+            pair[:, TRI_RW0 : TRI_RW0 + 3] = 1.0
+            pair[:, TRI_N0 : TRI_UV0 + 6] = torch.from_numpy(rng.uniform(-1, 1, (2, 15)).astype(np.float32))
+            for i, zero in enumerate(zeros):
+                pair[i, TRI_Z0 : TRI_Z0 + 3] = zero
+            extra.append(pair)
+        dup = rec[rng.choice(n, 8, replace=False)].clone()  # equal z, later in the segment
+        odd = rec[rng.choice(n, 8, replace=False)].clone()
+        odd[:, TRI_Z0 : TRI_Z0 + 3] = torch.tensor([[1.0], [float("nan")], [1.5], [-0.25]]).repeat(2, 3)
+        # Each coincident pair's two records fall in different work items.
+        seg = torch.cat([extra[0][:1], rec[: n // 2], extra[1][:1], dup, extra[1][1:], odd, rec[n // 2 :],
+                         extra[0][1:]])
+        seg[:, TRI_MESH_ID] = torch.arange(seg.shape[0], dtype=F32) + 100.0 * t
+        segs.append(seg)
+    counts = torch.tensor([s.shape[0] for s in segs], dtype=torch.int32)
+    offs = torch.cat([torch.zeros(1, dtype=torch.int32), torch.cumsum(counts, 0).to(torch.int32)])
+    return counts, offs, torch.cat(segs)
+
+
+@pytest.mark.parametrize("which", ["adversarial", "frame"])
+def test_visbuf_model_equals_serial_walk(flagship_small, which):
+    if which == "frame":
+        b, cfg = flagship_small[:2]
+        counts, offs, stream = b.counts, b.offs, b.stream
+        kw = dict(nty=-(-cfg.height // cfg.tile_h), ntx=-(-cfg.width // cfg.tile_w),
+                  tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    else:
+        kw = dict(nty=2, ntx=2, tile_h=8, tile_w=128)
+        counts, offs, stream = adversarial_stream(np.random.default_rng(3), **kw)
+    R = 8
+    assert int(counts.max()) > 4 * R
+    serial = raster_tiles.raster_tiles_reference(counts, offs, stream, **kw)
+    model = visbuf_planes_model(counts, offs, stream, R=R, **kw)
+    assert torch.equal(model.view(torch.int32), serial.view(torch.int32))
+    assert float((serial[raster_tiles.PLANE_MID] >= 0).double().mean()) > 0.2
+    if which == "adversarial":
+        bits = serial[raster_tiles.PLANE_DEPTH].view(torch.int32)
+        assert bool((bits == torch.iinfo(torch.int32).min).any())  # -0.0 winners
+        assert bool((bits == 0).any())  # +0.0 winners

@@ -11,7 +11,7 @@ up, then runs `--frames` step_frame calls
 under torch.profiler and prints one JSON line: ms per frame on the host
 clock around the synchronised window, the device's busy share (the summed
 time of the CUDA kernels and copies over the window), kernel launches,
-host-to-device copies and stream synchronisations per frame, and the ten
+copies, stream and event synchronisations per frame, and the ten
 kernels with the most device time.  The full key_averages tables go to
 `--out`.  Then the card's name and power limit.  Needs a CUDA device; imports
 no JAX.
@@ -95,6 +95,7 @@ def main() -> int:
             "kernel_launches_per_frame": count.get("cudaLaunchKernel", 0) / n,
             "memcpy_per_frame": count.get("cudaMemcpyAsync", 0) / n,
             "stream_syncs_per_frame": count.get("cudaStreamSynchronize", 0) / n,
+            "event_syncs_per_frame": count.get("cudaEventSynchronize", 0) / n,
             "top_kernels_ms_per_frame": {e.key[:80]: _device_us(e) / 1e3 / n for e in top},
         }), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
