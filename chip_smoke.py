@@ -7,8 +7,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. build   — compile the hand-written kernels (csrc/*.cu) with nvcc, one
              process per source, all started together.
 2. k1      — the setup kernel against its plain PyTorch version on the
-             flagship scene (23,906 triangles, 1920x1080): valid, mesh id and
-             padding exact, float fields bit-equal or within rounding bounds.
+             flagship scene (23,906 triangles, 1920x1080) and on 600
+             instances of a cube (600 meshes): records, boxes and valid
+             flags bit-equal (int32 views); ptxas's registers and stack
+             frame, the block size and grid, ms and device ms.
 3. k2      — the fused tile kernel against its plain version on the same
              binned input, at 256x64 and 1920x1080: equal per-tile overflow,
              max |du8| <= 1, fewer than 1% of pixels different; records
@@ -27,8 +29,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              1 u8 on < 1% of pixels; device ms, also with the light-heaviest
              tile's count set to 0 and with no point light.
 6. k4      — the depth-only setup kernel against its plain version in the
-             light's view of the flagship scene, cull none: records and
-             boxes bit-equal.
+             light's view of the flagship scene and of the 600-mesh scene,
+             cull none: records, boxes and valid flags bit-equal; reported
+             as k1.
 7. k3      — the depth-only raster kernel: the 1024^2 shadow map on 16 x 128
              tiles equal (torch.equal) to its plain version at 64, 128 and
              256 records a work item, and on the display grid equal to the
@@ -101,14 +104,26 @@ with every launch count set to 0 just before it and read just after.
 
     python3 chip_smoke.py --time-staged DIR
 
-runs no phase: it times the staged frame's two per-pixel kernels, K6 and K7
-(K7 also with its light-heaviest tile's count set to 0 and with no point
-light), from CUDA-graph replays on the staged flagship's inputs, with the
-port imported from the checkout at DIR, and prints one JSON line and the
-card's name and power limit.  It passes only the arguments every version of
-the two wrappers takes, so that one call can time the parent commit
-(unpacked with `git archive` into a directory .gitignore lists) and this
-tree in turns on the same card.
+runs no phase: it times the setup kernels, K1 on the flagship's camera pass
+and K4 on config 4's light-view pass (1024^2), and the staged frame's two
+per-pixel kernels, K6 and K7 (K7 also with its light-heaviest tile's count
+set to 0 and with no point light), from CUDA-graph replays on the staged
+flagship's inputs, with the port imported from the checkout at DIR, and
+prints one JSON line (with the setup kernels' ptxas lines when this process
+built them) and the card's name and power limit.  It passes only the
+arguments every version of the wrappers takes, so that one call can time
+the parent commit (unpacked with `git archive` into a directory .gitignore
+lists) and this tree in turns on the same card.
+
+    python3 chip_smoke.py --time-setup-blocks
+
+runs no phase: it builds this checkout's csrc/setup.cu at 64, 128 and 256
+threads a block (the source's one block size replaced in a copy under
+build/), checks each build's K1 and K4 bit-equal to the plain versions on
+the flagship inputs, and prints each one's graph-replayed device ms (the
+sizes in turns, 3 passes), grid and ptxas lines, and the device ms of the
+valid flags computed from the records by a second kernel, as the wrapper
+did before the kernel wrote them.
 """
 from __future__ import annotations
 
@@ -116,8 +131,11 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -263,6 +281,46 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def setup_equal(got, ref) -> bool:
+    """Two TriSetups equal bit for bit: records and boxes as int32 views
+    (the sign of zero too), and the valid flags."""
+    import torch
+
+    i32 = torch.int32
+    return (torch.equal(got.packed.view(i32), ref.packed.view(i32))
+            and torch.equal(got.aabb.view(i32), ref.aabb.view(i32)) and torch.equal(got.valid, ref.valid))
+
+
+def setup_ptxas(log: str) -> dict:
+    """ptxas's lines (registers; stack frame and spills) for the setup
+    kernel's two instantiations in an nvcc log: "K1" (setup_kernel<true>)
+    and "K4" (setup_kernel<false>).  Empty for a log without a build."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            key = "K1" if "setup_kernelILb1E" in ln else ("K4" if "setup_kernelILb0E" in ln else None)
+        elif key and ("registers" in ln or "stack frame" in ln):
+            out.setdefault(key, []).append(ln.strip())
+    return out
+
+
+SETUP_THREADS_DECL = re.compile(r"constexpr int kThreads = (\d+);")
+
+
+def setup_source(csrc_dir: str) -> tuple:
+    """(csrc/setup.cu's text, its threads a block)."""
+    with open(os.path.join(csrc_dir, "setup.cu")) as fh:
+        src = fh.read()
+    return src, int(SETUP_THREADS_DECL.search(src).group(1))
+
+
+def instanced_scene(tp, cfg, device, n: int = 600):
+    """n instances of one cube on the benchmark grid: n meshes, 12 n
+    triangles, each instance's matrices selected by its mesh id."""
+    geo = tp.build_instanced_geometry([tp.procedural.cube(1.0)], [0] * n)
+    return tp.animate(tp.make_scene(geo, cfg, placement="grid", device=device), cfg.yaw_per_frame, cfg)
 
 
 def per_tile_covered(depth_planes, tile_h: int, tile_w: int):
@@ -551,7 +609,7 @@ def main() -> int:
     )
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.transform import (
-        TRI_MESH_ID, TRI_VALID, frame_matrices, setup_depth_reference, setup_frame_triangles,
+        frame_matrices, setup_depth_reference, setup_frame_triangles,
         setup_triangles_reference,
     )
     from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
@@ -589,29 +647,37 @@ def main() -> int:
     got = setup_cuda.setup_triangles(*k1_args)
     ref = setup_triangles_reference(*k1_args)
     torch.cuda.synchronize()
-    gp, rp = got.packed, ref.packed
-    check(gp.shape == rp.shape == (2 * geo.num_triangles, 32), f"K1 shape {tuple(gp.shape)}")
-    check(torch.equal(gp[:, TRI_MESH_ID], rp[:, TRI_MESH_ID]), "K1 mesh ids differ")
-    check(torch.equal(gp[:, 30:32], rp[:, 30:32]), "K1 padding differs")
-    flips = int((gp[:, TRI_VALID] != rp[:, TRI_VALID]).sum())
-    check(flips == 0, f"K1 valid flags differ on {flips} records")
-    exact = gp == rp
-    close = torch.isclose(gp, rp, rtol=2e-4, atol=2e-4)
-    bad = float((~(exact | close)).double().mean())
-    check(float(exact.double().mean()) > 0.9 and bad < 1e-4, f"K1 records off: bad {bad}")
-    check(bool(torch.isclose(got.aabb, ref.aabb, rtol=2e-4, atol=2e-3).all()), "K1 boxes off")
-    k1_err = float((gp - rp).abs().max())
+    check(got.packed.shape == (2 * T, 32), f"K1 shape {tuple(got.packed.shape)}")
+    check(setup_equal(got, ref), "K1 records, boxes or valid flags differ from the plain version")
+    k1_err = float((got.packed - ref.packed).abs().max())
+    # Many meshes: 600 instances, each with its own matrices.
+    inst = instanced_scene(tp, cfg, dev)
+    imodel, _, imvp = frame_matrices(inst, cfg)
+    ig = inst.geometry
+    i_args = (ig.fv_pos_cols, ig.fv_nrm_cols, ig.fv_uv_cols, ig.tri_mesh_id, imvp, imodel,
+              cfg.width, cfg.height)
+    igot, iref = setup_cuda.setup_triangles(*i_args), setup_triangles_reference(*i_args)
+    torch.cuda.synchronize()
+    check(setup_equal(igot, iref), "K1 differs from the plain version on the 600-mesh scene")
+    check(int(igot.valid.sum()) > 0, "the 600-mesh scene has no valid record")
+    _, threads = setup_source(cuda_build.CSRC_DIR)
+    ptxas = setup_ptxas(cuda_build.BuildInfo.log)
     k1_ms = cuda_ms(lambda: setup_cuda.setup_triangles(*k1_args), 200)
     k1_plain_ms = cuda_ms(lambda: setup_triangles_reference(*k1_args), 20)
     k1_dev_ms = graph_ms(lambda: setup_cuda.setup_triangles(*k1_args), 50)
-    emit({
-        "phase": "k1", "ok": True, "records": int(gp.shape[0]),
-        "valid": int(got.valid.sum()), "bit_equal_frac": float(exact.double().mean()),
-        "max_abs_err": k1_err, "aabb_max_abs_err": float((got.aabb - ref.aabb).abs().max()),
-        "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
-    })
     M = mvp.shape[0]
-    k1_bytes = T * (36 + 36 + 24 + 4) + 2 * M * 64 + 2 * T * (32 * 4 + 16)
+    # Face-vertex columns and mesh ids in, the matrices, records, boxes and
+    # valid flags out.
+    k1_bytes = T * (36 + 36 + 24 + 4) + 2 * M * 64 + 2 * T * (32 * 4 + 16 + 1)
+    emit({
+        "phase": "k1", "ok": True, "records": int(got.packed.shape[0]), "valid": int(got.valid.sum()),
+        "bit_equal": True, "max_abs_err": k1_err,
+        "instanced": {"meshes": imvp.shape[0], "triangles": ig.tri_mesh_id.shape[0],
+                      "valid": int(igot.valid.sum()), "bit_equal": True},
+        "block_threads": threads, "grid": -(-T // threads), "ptxas": ptxas.get("K1"),
+        "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
+        **bound(k1_bytes, T * SETUP_OPS_PER_TRIANGLE),
+    })
     kernels["setup"] = dict(
         name="setup_triangles", route="cuda",
         source="d3d12_deferred_renderer_tpu_torch/csrc/setup.cu",
@@ -619,6 +685,7 @@ def main() -> int:
         max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
         **bound(k1_bytes, T * SETUP_OPS_PER_TRIANGLE), library_ms=None, device_ms=k1_dev_ms,
     )
+    del igot, iref
 
     # ---- 3. K2 against its plain version, small and full size ----
     small_cfg = dataclasses.replace(cfg, width=256, height=64)
@@ -817,16 +884,22 @@ def main() -> int:
     k4_args = (g.fv_pos_cols, g.tri_mesh_id, xmath.matmul4_fma(model, lvp), S, S)
     got = setup_cuda.setup_depth_triangles(*k4_args)
     ref = setup_depth_reference(*k4_args)
+    ilvp = shadows.light_view_proj(inst.lights.direction)
+    i4_args = (ig.fv_pos_cols, ig.tri_mesh_id, xmath.matmul4_fma(imodel, ilvp), S, S)
+    igot, iref = setup_cuda.setup_depth_triangles(*i4_args), setup_depth_reference(*i4_args)
     torch.cuda.synchronize()
-    check(torch.equal(got.packed, ref.packed) and torch.equal(got.aabb, ref.aabb),
-          "K4 records or boxes differ from the plain version")
+    check(setup_equal(got, ref), "K4 records, boxes or valid flags differ from the plain version")
+    check(setup_equal(igot, iref), "K4 differs from the plain version on the 600-mesh scene")
     check(not bool(got.packed[:, 12:27].any()), "K4 attribute fields not zero")
     k4_ms = cuda_ms(lambda: setup_cuda.setup_depth_triangles(*k4_args), 200)
     k4_plain_ms = cuda_ms(lambda: setup_depth_reference(*k4_args), 20)
     k4_dev_ms = graph_ms(lambda: setup_cuda.setup_depth_triangles(*k4_args), 50)
-    k4_bytes = T * (36 + 4) + M * 64 + 2 * T * (32 * 4 + 16)
+    k4_bytes = T * (36 + 4) + M * 64 + 2 * T * (32 * 4 + 16 + 1)
     emit({"phase": "k4", "ok": True, "records": int(got.packed.shape[0]), "valid": int(got.valid.sum()),
-          "max_abs_err": 0.0, "ms": k4_ms, "device_ms": k4_dev_ms, "plain_ms": k4_plain_ms,
+          "bit_equal": True, "max_abs_err": 0.0,
+          "instanced": {"meshes": imvp.shape[0], "valid": int(igot.valid.sum()), "bit_equal": True},
+          "block_threads": threads, "grid": -(-T // threads), "ptxas": ptxas.get("K4"),
+          "ms": k4_ms, "device_ms": k4_dev_ms, "plain_ms": k4_plain_ms,
           **bound(k4_bytes, T * SETUP_DEPTH_OPS_PER_TRIANGLE)})
     kernels["setup_depth"] = dict(
         name="setup_depth_triangles", route="cuda",
@@ -835,6 +908,7 @@ def main() -> int:
         max_abs_err=0.0, ms=k4_ms, plain_ms=k4_plain_ms,
         **bound(k4_bytes, T * SETUP_DEPTH_OPS_PER_TRIANGLE), library_ms=None, device_ms=k4_dev_ms,
     )
+    del inst, ig, igot, iref
 
     # ---- 7. K3: the 1024^2 shadow map on 16 x 128 tiles; the display grid ----
     scfg = shadows.shadow_bin_config(cfg4, T)
@@ -1368,9 +1442,11 @@ def time_staged(root: str, passes: int = 3) -> int:
         return 2
     sys.path.insert(0, os.path.abspath(root))
     import d3d12_deferred_renderer_tpu_torch as tp
-    from d3d12_deferred_renderer_tpu_torch.ops import lighting, lighting_cuda, raster_tiles
+    from d3d12_deferred_renderer_tpu_torch import xmath
+    from d3d12_deferred_renderer_tpu_torch.ops import lighting, lighting_cuda, raster_tiles, setup_cuda, shadows
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.transform import frame_matrices, setup_frame_triangles
+    from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda", 0)
     cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=False)
@@ -1384,7 +1460,7 @@ def time_staged(root: str, passes: int = 3) -> int:
     tris, _ = setup_frame_triangles(state, cfg)
     b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
     gb = tp.render_gbuffer(state, cfg)
-    _, view_proj, _ = frame_matrices(state, cfg)
+    model, view_proj, mvp = frame_matrices(state, cfg)
     inv_vp = lighting.inverse_view_proj(view_proj)
     tl = lighting.cull_lights_to_tiles(gb.depth, state.lights, cfg, view_proj, tile=(TH, TW),
                                        max_per_tile=min(256, cfg.max_live_lights_per_tile), inv_vp=inv_vp)
@@ -1395,14 +1471,120 @@ def time_staged(root: str, passes: int = 3) -> int:
     heavy[int(torch.argmax(heavy))] = 0
     no_heavy = (*sargs[:3], heavy, sargs[4])
     no_lights = (*sargs[:3], torch.zeros_like(sargs[3]), sargs[4])
-    fns = {"K6": lambda: raster_tiles.raster_tiles(b.counts, b.offs, b.stream, **grid),
+    g = state.geometry
+    k1_args = (g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id, mvp, model, W, H)
+    S = dataclasses.replace(cfg, **CONFIG4_FLAGS).shadow_map_size
+    k4_args = (g.fv_pos_cols, g.tri_mesh_id,
+               xmath.matmul4_fma(model, shadows.light_view_proj(state.lights.direction)), S, S)
+    fns = {"K1": lambda: setup_cuda.setup_triangles(*k1_args),
+           "K4": lambda: setup_cuda.setup_depth_triangles(*k4_args),
+           "K6": lambda: raster_tiles.raster_tiles(b.counts, b.offs, b.stream, **grid),
            "K7": lambda: lighting_cuda.shade_tiles(*sargs, **grid, gamma=cfg.gamma),
            "K7_without_heaviest_tile": lambda: lighting_cuda.shade_tiles(*no_heavy, **grid, gamma=cfg.gamma),
            "K7_without_point_lights": lambda: lighting_cuda.shade_tiles(*no_lights, **grid, gamma=cfg.gamma)}
     times = {k: [graph_ms(f, 50) for _ in range(passes)] for k, f in fns.items()}
     emit({"phase": "time_staged", "root": os.path.abspath(root), "device_ms": times,
           "best_device_ms": {k: min(v) for k, v in times.items()},
+          "setup_threads": setup_source(cuda_build.CSRC_DIR)[1],
+          "setup_ptxas": setup_ptxas(cuda_build.BuildInfo.log),
           "timing": "device ms per call, 50 calls replayed from one CUDA graph, per pass"})
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    return 0
+
+
+def time_setup_blocks(sizes=(64, 128, 256), passes: int = 3) -> int:
+    """The --time-setup-blocks mode (see the module docstring)."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch import xmath
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+    from d3d12_deferred_renderer_tpu_torch.ops.transform import (
+        TriSetup, frame_matrices, setup_depth_reference, setup_triangles_reference,
+    )
+    from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
+
+    src, _ = setup_source(cuda_build.CSRC_DIR)
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=cuda_build.BUILD_DIR)
+    try:
+        procs = {}
+        for n in sizes:
+            cu = os.path.join(tmp, f"setup_{n}.cu")
+            with open(cu, "w") as fh:
+                fh.write(SETUP_THREADS_DECL.sub(f"constexpr int kThreads = {n};", src, count=1))
+            procs[n] = subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC_DIR, "-shared",
+                 "-o", os.path.join(tmp, f"libsetup_{n}.so"), cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs = {n: p.communicate()[0] for n, p in procs.items()}
+        check(all(p.returncode == 0 for p in procs.values()), f"nvcc failed: {logs}")
+        libs = {}
+        for n in sizes:
+            lib = libs[n] = ctypes.CDLL(os.path.join(tmp, f"libsetup_{n}.so"))
+            for name in ("setup_triangles_launch", "setup_depth_launch"):
+                getattr(lib, name).argtypes = list(cuda_build.SIGNATURES[name])
+                getattr(lib, name).restype = ctypes.c_int
+
+        dev = torch.device("cuda", 0)
+        cfg = tp.FLAGSHIP_CONFIG
+        _, state = flagship_scene(tp, cfg, dev)
+        state = tp.animate(state, cfg.yaw_per_frame, cfg)
+        model, _, mvp = frame_matrices(state, cfg)
+        g = state.geometry
+        T, M, S = g.tri_mesh_id.shape[0], mvp.shape[0], dataclasses.replace(cfg, **CONFIG4_FLAGS).shadow_map_size
+        lmvp = xmath.matmul4_fma(model, shadows.light_view_proj(state.lights.direction))
+        refs = {"K1": setup_triangles_reference(g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id,
+                                                mvp, model, cfg.width, cfg.height),
+                "K4": setup_depth_reference(g.fv_pos_cols, g.tri_mesh_id, lmvp, S, S)}
+
+        def launcher(lib, kernel, n):
+            out = TriSetup(packed=torch.empty((2 * T, 32), device=dev), aabb=torch.empty((2 * T, 4), device=dev),
+                           valid=torch.empty(2 * T, dtype=torch.bool, device=dev))
+            ptrs = (out.packed.data_ptr(), out.aabb.data_ptr(), out.valid.data_ptr())
+
+            def fn():
+                stream = torch.cuda.current_stream().cuda_stream
+                if kernel == "K1":
+                    err = lib.setup_triangles_launch(
+                        g.fv_pos_cols.data_ptr(), g.fv_nrm_cols.data_ptr(), g.fv_uv_cols.data_ptr(),
+                        g.tri_mesh_id.data_ptr(), mvp.data_ptr(), model.data_ptr(), T, M,
+                        float(cfg.width), float(cfg.height), 1, *ptrs, stream)  # cull back
+                else:
+                    err = lib.setup_depth_launch(g.fv_pos_cols.data_ptr(), g.tri_mesh_id.data_ptr(), lmvp.data_ptr(),
+                                                 T, M, float(S), float(S), 0, *ptrs, stream)  # cull none
+                cuda_build.raise_on_error(err, f"{kernel} at {n} threads")
+            return fn, out
+
+        fns = {}
+        for n in sizes:
+            for kernel in ("K1", "K4"):
+                fn, out = launcher(libs[n], kernel, n)
+                fn()
+                torch.cuda.synchronize()
+                check(setup_equal(out, refs[kernel]), f"{kernel} at {n} threads differs from the plain version")
+                fns[(kernel, n)] = fn
+        times = {f"{k}@{n}": [] for k, n in fns}
+        for _ in range(passes):  # the block sizes in turns
+            for (k, n), fn in fns.items():
+                times[f"{k}@{n}"].append(graph_ms(fn, 50))
+        # The launch the kernel's own valid flags replace: the flags from
+        # record field 28, as a second kernel.
+        packed = refs["K1"].packed
+        times["valid_from_records"] = [graph_ms(lambda: packed[:, 28] > 0.0, 50) for _ in range(passes)]
+        emit({"phase": "time_setup_blocks", "triangles": T, "device_ms": times,
+              "best_device_ms": {k: min(v) for k, v in times.items()},
+              "grid": {n: -(-T // n) for n in sizes}, "ptxas": {n: setup_ptxas(logs[n]) for n in sizes},
+              "bit_equal": True,
+              "timing": "device ms per call, 50 calls replayed from one CUDA graph, per pass"})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     return 0
@@ -1411,4 +1593,6 @@ def time_staged(root: str, passes: int = 3) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-staged"] and len(sys.argv) == 3:
         sys.exit(time_staged(sys.argv[2]))
+    if sys.argv[1:] == ["--time-setup-blocks"]:
+        sys.exit(time_setup_blocks())
     sys.exit(main())

@@ -44,10 +44,10 @@ F = ctypes.c_float
 
 # C entry points: name -> argument types.  Each returns cudaGetLastError().
 SIGNATURES = {
-    # pos, nrm, uv, mesh_id, mvp, model, T, M, W, H, cull, packed, aabb, stream
-    "setup_triangles_launch": (P, P, P, P, P, P, I, I, F, F, I, P, P, P),
-    # pos, mesh_id, mvp, T, M, W, H, cull, packed, aabb, stream
-    "setup_depth_launch": (P, P, P, I, I, F, F, I, P, P, P),
+    # pos, nrm, uv, mesh_id, mvp, model, T, M, W, H, cull, packed, aabb, valid, stream
+    "setup_triangles_launch": (P, P, P, P, P, P, I, I, F, F, I, P, P, P, P),
+    # pos, mesh_id, mvp, T, M, W, H, cull, packed, aabb, valid, stream
+    "setup_depth_launch": (P, P, P, I, I, F, F, I, P, P, P, P),
     # counts, offs, records, lights, n_lights, mats, n_mats, uniforms, nty,
     # ntx, tile_h, tile_w, light_ids, light_counts, slots, vis, inv_gamma,
     # bump, strength, 2 pi freq, hdr_out, aux, color, tile_overflow, stream

@@ -38,26 +38,90 @@ def _scene(cfg, dev, n_lights=24, radius=3.0):
     return tp.animate(state, cfg.yaw_per_frame, cfg)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cull", ["back", "front", "none"])
-def test_setup_kernel_matches_plain(cull):
-    """Bit-equal records and boxes: both round every operation once, in one
-    order."""
-    dev = _cuda()
-    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=384)
-    state = _scene(cfg, dev)
+# The setup kernels' cases: the benchmark scene; the near-clip scene of
+# test_torch_setup.py (triangles straddle the near plane); one triangle; 333
+# triangles (no multiple of any block size the kernel was timed at); 600
+# instances of a cube (600 meshes, each with its own matrices).
+SETUP_CASES = ["benchmark", "near_clip", "one_triangle", "ragged_333", "instanced_600"]
+
+
+def _setup_case(case, dev):
+    """(face-vertex columns (pos, nrm, uv, mesh id), model, mvp, lights'
+    direction, cfg) of a setup case."""
+    if case == "near_clip":
+        cfg = tp.RendererConfig(width=256, height=128, eye=(0.0, 0.2, -0.6), at=(0.0, 0.0, 1.0), z_near=0.25)
+        geo = tp.build_scene_geometry([tp.procedural.cube(1.0), tp.procedural.torus(0.8, 0.3, 8, 12)])
+        state = tp.animate(tp.make_scene(geo, cfg, device=dev))
+    elif case == "instanced_600":
+        cfg = tp.RendererConfig(width=256, height=128)
+        geo = tp.build_instanced_geometry([tp.procedural.cube(1.0)], [0] * 600)
+        state = tp.animate(tp.make_scene(geo, cfg, placement="grid", device=dev))
+    else:
+        cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=384)
+        state = _scene(cfg, dev)
     model, _, mvp = frame_matrices(state, cfg)
     g = state.geometry
-    args = (g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id, mvp, model,
-            cfg.width, cfg.height)
+    cols = (g.fv_pos_cols, g.fv_nrm_cols, g.fv_uv_cols, g.tri_mesh_id)
+    if case in ("one_triangle", "ragged_333"):
+        valid = setup_triangles_reference(*cols, mvp, model, cfg.width, cfg.height, cull="none").valid
+        first = int(torch.nonzero(valid)[0]) // 2 if case == "one_triangle" else 0
+        n = 1 if case == "one_triangle" else 333
+        cols = tuple(c[..., first:first + n].contiguous() for c in cols)
+    return cols, model, mvp, state.lights.direction, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["back", "front", "none"])
+@pytest.mark.parametrize("case", SETUP_CASES)
+def test_setup_kernel_matches_plain(case, cull):
+    """Records, boxes and valid flags bit-equal (int32 views, the sign of
+    zero too): both round every operation once, in one order."""
+    dev = _cuda()
+    cols, model, mvp, _, cfg = _setup_case(case, dev)
+    args = (*cols, mvp, model, cfg.width, cfg.height)
     before = setup_cuda.setup_triangles.launches
     got = setup_cuda.setup_triangles(*args, cull=cull)
     ref = setup_triangles_reference(*args, cull=cull)
     torch.cuda.synchronize()
     assert setup_cuda.setup_triangles.launches == before + 1
-    assert torch.equal(got.packed, ref.packed)
-    assert torch.equal(got.aabb, ref.aabb)
+    assert torch.equal(got.packed.view(torch.int32), ref.packed.view(torch.int32))
+    assert torch.equal(got.aabb.view(torch.int32), ref.aabb.view(torch.int32))
+    assert torch.equal(got.valid, ref.valid)
+    assert case == "one_triangle" or int(ref.valid.sum()) > 0
+    if case == "near_clip" and cull == "back":
+        assert bool(ref.valid[1::2].any()), "the near-clip scene never clips"
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_setup_kernel_is_one_launch(kernel):
+    """A setup call launches its kernel once and nothing else: the kernel
+    writes the valid flags itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+
+    dev = _cuda()
+    cols, model, mvp, light_dir, cfg = _setup_case("benchmark", dev)
+    if kernel == "K1":
+        wrapper = setup_cuda.setup_triangles
+        call = lambda: wrapper(*cols, mvp, model, cfg.width, cfg.height)  # noqa: E731
+    else:
+        from d3d12_deferred_renderer_tpu_torch import xmath
+
+        wrapper = setup_cuda.setup_depth_triangles
+        lmvp = xmath.matmul4_fma(model, shadows.light_view_proj(light_dir))
+        call = lambda: wrapper(cols[0], cols[3], lmvp, 256, 256)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "setup_kernel" in kernels[0], kernels
+    assert out.valid.dtype == torch.bool and int(out.valid.sum()) > 0
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("size,live,radius", [
@@ -311,24 +375,53 @@ CONFIG4 = dataclasses.replace(
 
 
 @pytest.mark.cuda
-def test_depth_setup_kernel_matches_plain():
-    """Light-view records and boxes bit-equal, cull none, fields 12-26 zero."""
+@pytest.mark.parametrize("cull", ["none", "back", "front"])
+@pytest.mark.parametrize("case", SETUP_CASES)
+def test_depth_setup_kernel_matches_plain(case, cull):
+    """Light-view records, boxes and valid flags bit-equal (int32 views),
+    fields 12-26 zero, on the setup kernel's cases."""
     from d3d12_deferred_renderer_tpu_torch import xmath
     from d3d12_deferred_renderer_tpu_torch.ops import shadows
     from d3d12_deferred_renderer_tpu_torch.ops.transform import setup_depth_reference
 
     dev = _cuda()
-    state = _scene(CONFIG4, dev)
-    model = xmath.model_matrix(state.position, state.orientation, state.scale)
-    mvp = xmath.matmul4_fma(model, shadows.light_view_proj(state.lights.direction))
-    g = state.geometry
+    cols, model, _, light_dir, _ = _setup_case(case, dev)
+    mvp = xmath.matmul4_fma(model, shadows.light_view_proj(light_dir))
     before = setup_cuda.setup_depth_triangles.launches
-    got = setup_cuda.setup_depth_triangles(g.fv_pos_cols, g.tri_mesh_id, mvp, 256, 256)
-    ref = setup_depth_reference(g.fv_pos_cols, g.tri_mesh_id, mvp, 256, 256)
+    got = setup_cuda.setup_depth_triangles(cols[0], cols[3], mvp, 256, 256, cull=cull)
+    ref = setup_depth_reference(cols[0], cols[3], mvp, 256, 256, cull=cull)
     torch.cuda.synchronize()
     assert setup_cuda.setup_depth_triangles.launches == before + 1
-    assert torch.equal(got.packed, ref.packed) and torch.equal(got.aabb, ref.aabb)
-    assert not got.packed[:, 12:27].any() and int(got.valid.sum()) > 100
+    assert torch.equal(got.packed.view(torch.int32), ref.packed.view(torch.int32))
+    assert torch.equal(got.aabb.view(torch.int32), ref.aabb.view(torch.int32))
+    assert torch.equal(got.valid, ref.valid)
+    assert not got.packed[:, 12:27].any()
+    assert case == "one_triangle" or int(ref.valid.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_frame", [True, False], ids=["fused", "staged"])
+def test_instanced_600_step_frame_on_the_card(fused_frame):
+    """600 meshes (instances of a cube): tp.step_frame on the card agrees
+    with the same frame rendered by the plain versions on the CPU, max
+    |du8| <= 1 on fewer than 1% of pixels, overflow 0 on both devices.
+    The per-tile cap is raised from the flagship's 512: the far rows of the
+    grid pile 703 triangles into one tile of this 256 x 128 frame."""
+    dev = _cuda()
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=128, fused=fused_frame,
+                              max_tris_per_tile=1024)
+    geo = tp.build_instanced_geometry([tp.procedural.cube(1.0)], [0] * 600)
+    state = tp.make_scene(geo, cfg, lights=tp.random_point_lights(16, cfg=cfg, radius=3.0, device=dev),
+                          placement="grid", materials=tp.Materials.varied(geo.num_meshes, device=dev), device=dev)
+    state, frame = tp.step_frame(state, cfg)
+    _, card_stats = tp.render_stats(state, cfg)
+    torch.cuda.synchronize()
+    cpu_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
+    plain, stats = tp.render_stats(cpu_state, cfg)
+    assert int(card_stats["overflow"]) == 0 and int(stats["overflow"]) == 0
+    d = (frame.cpu().int() - plain.int()).abs().amax(-1)
+    assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.01
+    assert float((frame.amax(-1) > 0).double().mean()) > 0.2
 
 
 @pytest.mark.cuda

@@ -5,10 +5,13 @@ kernel) and the JAX package's setup_frame_triangles (the XLA stacked-column
 setup) on the same scene state, held to test_setup_pallas's contract:
 structural fields exact, float fields bit-equal or within rounding
 tolerance.  The port writes its matrix products and sums in a fixed order,
-so on these scenes it is in fact bit-equal.
+so on these scenes it is in fact bit-equal to the op-by-op JAX setup.  The
+instanced_600 case (600 meshes, each triangle's matrices selected by its
+mesh id) pins the many-mesh contract.
 """
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -40,6 +43,13 @@ def _near_clip(cfg):
     return dxr.make_scene(geo, cfg)
 
 
+def _instanced_600(cfg):
+    # 600 instances of one cube: M = 600 meshes, each triangle's matrices
+    # selected by its mesh id (the CUDA kernel reads them from global memory).
+    geo = dxr.build_instanced_geometry([dxr.procedural.cube(1.0)], [0] * 600)
+    return dxr.make_scene(geo, cfg, placement="grid")
+
+
 CASES = {
     "benchmark": (
         dataclasses.replace(dxr.FLAGSHIP_CONFIG, width=640, height=384), _benchmark, "back", 0.9),
@@ -49,7 +59,12 @@ CASES = {
         _near_clip, "back", 0.7),
     "cull_front": (dxr.RendererConfig(width=128, height=64), _benchmark, "front", 0.9),
     "cull_none": (dxr.RendererConfig(width=128, height=64), _benchmark, "none", 0.9),
+    "instanced_600": (dxr.RendererConfig(width=128, height=64), _instanced_600, "back", 0.9),
 }
+# Cases whose JAX setup runs under jax.jit: op by op, every eager op would
+# compile anew for the 600-mesh shapes (~7 s).  Jitted XLA contracts some
+# products into FMAs, which _assert_setup_close's tolerance covers.
+JIT_CASES = {"instanced_600"}
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +73,10 @@ def pairs():
     out = {}
     for name, (cfg, build, cull, _) in CASES.items():
         state = dxr.animate(build(cfg))
-        ref, _ = jax_setup(state, cfg, cull=cull)
+        if name in JIT_CASES:
+            ref = jax.jit(lambda s, cfg=cfg, cull=cull: jax_setup(s, cfg, cull=cull)[0])(state)
+        else:
+            ref, _ = jax_setup(state, cfg, cull=cull)
         port_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
         got, _ = setup_frame_triangles(port_state, tp.RendererConfig(**dataclasses.asdict(cfg)), cull=cull)
         out[name] = (ref, got)
