@@ -97,8 +97,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              index_copy_'s ms, the bound, and torch.sort's ns/key at the
              same count.
 
-Then the card's name and power limit (nvidia-smi), the kernels line, and the
-last line {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
+19. bands — the screen-row band path.  bands_kernels: K6, K3, K7 and K2
+             on the middle band of 3 (rows 360-719) and K6, K3 and K7 on the
+             second band of 4 (rows 270-539: a padded last tile row) of the
+             flagship frame, against their plain versions on the same band
+             inputs (K6 and K7 bit-equal, K3 torch.equal, K2 within 1 u8)
+             and against the same rows of the full frame's kernel (bit-equal
+             on whole tiles; K7 on the 270-row band within 1 u8): device ms
+             band beside full frame.  bands: parallel.render_sharded in 3
+             spawned ranks sharing the card through a gloo group (the fused
+             flagship, the fused list-fed frame, the staged flagship, the
+             unsplit config 4 with FXAA) and in 4 (the fused flagship config
+             on 270-row bands, which takes the staged branch; config 1 on
+             180-row bands): each rank's launches, the summed overflow 0 at
+             every 4th step of the 64-step orbit, the assembled frame against
+             the single-device frame of the same state (exact for config 1,
+             else within 1 u8 on < 0.2% of pixels), each rank's ms/frame.
+
+Then the card's name and power limit (nvidia-smi), the kernels line (with
+the band entries k6_band, k3_band, k7_band, k2_band), and the last line
+{"ok": true, "device": {...}}.  Without a CUDA device it exits 2
 and prints no result.  Needs one card; imports no JAX.  Each main path runs
 with every launch count set to 0 just before it and read just after.
 
@@ -329,10 +347,11 @@ def per_tile_covered(depth_planes, tile_h: int, tile_w: int):
     return (depth_planes < 1.0).reshape(Hp // tile_h, tile_h, Wp // tile_w, tile_w).sum((1, 3)).reshape(-1)
 
 
-def raster_box_pixels(counts, offs, stream, ntx: int, tile_h: int, tile_w: int) -> int:
+def raster_box_pixels(counts, offs, stream, ntx: int, tile_h: int, tile_w: int, y0: int = 0) -> int:
     """The raster work these binned records need: over every (tile, valid
     record) pair, the pixel centres inside the record's box (its vertices'
-    min and max) and inside its tile, computed on the card."""
+    min and max) and inside its tile (tile rows from frame row y0 on: a
+    band's), computed on the card."""
     import torch
 
     n = counts.long()
@@ -343,7 +362,7 @@ def raster_box_pixels(counts, offs, stream, ntx: int, tile_h: int, tile_w: int) 
     x, y = rec[:, 0:6:2], rec[:, 1:6:2]
     counted = []
     for lo, hi, t0, size in ((x.amin(1), x.amax(1), (tiles % ntx) * tile_w, tile_w),
-                             (y.amin(1), y.amax(1), (tiles // ntx) * tile_h, tile_h)):
+                             (y.amin(1), y.amax(1), (tiles // ntx) * tile_h + y0, tile_h)):
         c0 = torch.maximum(torch.ceil(lo - 0.5), t0.float())
         c1 = torch.minimum(torch.floor(hi - 0.5), (t0 + size - 1).float())
         counted.append(torch.nan_to_num(torch.clamp(c1 - c0 + 1.0, min=0.0), nan=0.0).double())
@@ -587,6 +606,111 @@ def drive_path(tp, state, cfg, kernels, sweep_steps: int = 64):
         passes.append((start.elapsed_time(end) / 30, (time.perf_counter() - t_host) * 1e3 / 30))
     launches = {k.__name__: k.launches for k in kernels}
     return state, frame, frames, launches, sweep_states, [int(o) for o in torch.stack(sweep_ovf)], passes
+
+
+# The bands phase: the paths that render_sharded drives, each as (label,
+# config changes from the fused flagship, band count, frame contract).
+# Exact for Lambert; for PBR max |du8| <= 1 on < 0.2% of pixels of the
+# single-device frame (band-local light culls).
+BAND_PATHS_3 = (
+    ("fused_flagship", dict(fused=True), "pbr"),
+    ("fused_listfed", dict(fused=True, inkernel_light_cull=False), "pbr"),
+    ("staged_flagship", dict(fused=False), "pbr"),
+    ("config4_fused_unsplit", dict(fused=True, fxaa=True, **CONFIG4_UNSPLIT_FLAGS), "pbr"),
+)
+# 270-row bands are not whole 8-row tiles: the fused config takes the
+# staged branch.  Config 1 (1280x720, Lambert) in bands of 180 rows.
+BAND_PATHS_4 = (
+    ("staged_flagship_270", dict(fused=True), "pbr"),
+    ("config1_180", None, "exact"),
+)
+BAND_SWEEP_STEPS, BAND_SAMPLE_EVERY = 64, 4
+
+
+def band_path_config(tp, changes):
+    if changes is None:
+        return tp.REFERENCE_CONFIG
+    return dataclasses.replace(tp.FLAGSHIP_CONFIG, **changes)
+
+
+def band_sweep_states(tp, state, cfg):
+    """The states of the orbit's sampled steps (every BAND_SAMPLE_EVERY-th of
+    BAND_SWEEP_STEPS steps of 2 pi / BAND_SWEEP_STEPS)."""
+    out = []
+    for step in range(BAND_SWEEP_STEPS):
+        state = tp.animate(state, 2.0 * math.pi / BAND_SWEEP_STEPS, cfg)
+        if step % BAND_SAMPLE_EVERY == BAND_SAMPLE_EVERY - 1:
+            out.append(state)
+    return out
+
+
+def bands_job(device, scenes, paths, passes: int = 2, frames_per_pass: int = 10):
+    """One band rank of the bands phase (run by parallel.run_bands): each
+    path through render_sharded, with every launch count of this rank set
+    to 0 just before it and read just after: one warm-up frame, the orbit's
+    sampled steps (summed overflow), then `passes` x `frames_per_pass`
+    frames of an advancing clock timed by CUDA events and the host clock.
+    Returns one dict a path; rank 0's carries the last sampled frame."""
+    import torch
+    import torch.distributed as dist
+
+    import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch.ops import (
+        bump, fused, lighting_cuda, raster_tiles, scatter, setup_cuda,
+    )
+    from d3d12_deferred_renderer_tpu_torch.parallel import render_sharded
+
+    wrappers = (setup_cuda.setup_triangles, fused.fused_tiles, raster_tiles.raster_tiles,
+                lighting_cuda.shade_tiles, setup_cuda.setup_depth_triangles, raster_tiles.raster_depth,
+                bump.bump_tiles, fused.directional_resolve, scatter.row_scatter)
+    out = []
+    for label, changes, _ in paths:
+        cfg = band_path_config(tp, changes)
+        state = tp.scene_from_arrays(scenes[label], device)
+        reset_launches(wrappers)
+        frames = 1
+        render_sharded(state, cfg)
+        sweep = band_sweep_states(tp, state, cfg)
+        ovf, frame = [], None
+        for s in sweep:
+            frame, stats = render_sharded(s, cfg, return_stats=True)
+            ovf.append(stats["overflow"])
+            frames += 1
+        ovf = [int(o) for o in torch.stack(ovf)]
+        timed = []
+        s = sweep[-1]
+        for _ in range(passes):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+            start.record()
+            for _ in range(frames_per_pass):
+                s = tp.animate(s, cfg.yaw_per_frame, cfg)
+                render_sharded(s, cfg)
+                frames += 1
+            end.record()
+            torch.cuda.synchronize()
+            timed.append((start.elapsed_time(end) / frames_per_pass,
+                          (time.perf_counter() - t_host) * 1e3 / frames_per_pass))
+        out.append({
+            "label": label, "rank": dist.get_rank(), "frames": frames,
+            "launches": {w.__name__: w.launches for w in wrappers}, "sampled_overflow": ovf,
+            "passes": timed, "frame_sum": int(frame.to(torch.int64).sum()),
+            "frame": frame.cpu().numpy() if dist.get_rank() == 0 else None,
+        })
+    return out
+
+
+# The band kernels' launches a frame on each path, by wrapper.
+BAND_PATH_LAUNCHES = {
+    "fused_flagship": {"setup_triangles": 1, "fused_tiles": 1},
+    "fused_listfed": {"setup_triangles": 1, "raster_depth": 1, "fused_tiles": 1},
+    "staged_flagship": {"setup_triangles": 1, "raster_tiles": 1, "shade_tiles": 1},
+    "config4_fused_unsplit": {"setup_triangles": 1, "setup_depth_triangles": 1, "raster_depth": 2,
+                              "fused_tiles": 1},
+    "staged_flagship_270": {"setup_triangles": 1, "raster_tiles": 1, "shade_tiles": 1},
+    "config1_180": {"setup_triangles": 1, "raster_tiles": 1},
+}
 
 
 def main() -> int:
@@ -1415,6 +1539,12 @@ def main() -> int:
                       ("bump", "bump_tiles"), ("resolve", "directional_resolve")):
         kernels[key]["launches"] = total_launches[name]
         check(total_launches[name] > 0, f"{name} never launched on the main paths")
+
+    # ---- 19. bands: the band kernels, then render_sharded's paths ----
+    t_bands = time.perf_counter()
+    band_kernel_phase(tp, state, dev, kernels)
+    band_path_phase(tp, state0, c1_state0, dev, kernels)
+    emit({"phase": "bands_done", "seconds": time.perf_counter() - t_bands})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     smi = subprocess.run(
@@ -1424,13 +1554,273 @@ def main() -> int:
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("device_ms", "list_fed", "variants_ms", "variants_device_ms", "rows", "prepass_device_ms", "prepass_bound_ms")
+    extra = ("device_ms", "list_fed", "variants_ms", "variants_device_ms", "rows", "prepass_device_ms",
+             "prepass_bound_ms", "band", "full_frame_device_ms")
     emit({"kernels": [{**{k: kernels[n][k] for k in keys}, **{k: kernels[n][k] for k in extra if k in kernels[n]}}
                       for n in ("setup", "fused", "raster", "shade", "setup_depth", "raster_depth", "bump",
-                                "resolve", "scatter")]})
+                                "resolve", "scatter", "k6_band", "k3_band", "k7_band", "k2_band")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def band_kernel_phase(tp, state, dev, kernels) -> None:
+    """The band kernels on the flagship frame (1920x1080): K6 and K3 on the
+    middle band of 3 (rows 360-719) and the second band of 4 (rows 270-539,
+    a padded last tile row), K7 on each band's G-buffer, K2 on the band of
+    whole tiles (in-kernel cull; lists + visibility + bump).  Each against
+    its plain version on the same band inputs (K6 planes and K7 HDR bit
+    for bit as int32, K3 torch.equal, K2 within 1 u8 on < 1% of pixels and
+    equal tile overflow) and against the same rows of the full-frame
+    kernel (bit for bit as int32 on the band of whole tiles; K6 and K3 on
+    both bands; K7 on the 270-row band within 1 u8 on < 1%: its band-local
+    tiles cull their own lights).  Device ms from graph replays, band beside
+    full frame; one line each, and the kernels line's band entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting, lighting_cuda, post, raster_tiles, shadows
+    from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
+    from d3d12_deferred_renderer_tpu_torch.ops.gbuffer import encode_gbuffer
+    from d3d12_deferred_renderer_tpu_torch.ops.transform import setup_frame_triangles
+
+    i32 = torch.int32
+    scfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=False)
+    fcfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True)
+    c4u = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True, **CONFIG4_UNSPLIT_FLAGS)
+    H, W, TH, TW = scfg.height, scfg.width, scfg.tile_h, scfg.tile_w
+    ntx = -(-W // TW)
+    li, L = state.lights, state.lights.num_point
+    tris, view_proj = setup_frame_triangles(state, scfg)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    lt, mats = fused.build_light_table(li), fused.build_material_table(state.materials, fcfg.gamma)
+    cap = min(L, scfg.max_live_lights_per_tile)
+    sd, lvp = shadows.render_shadow_map(state, c4u)
+    dense = dataclasses.replace(c4u, shadow_tiles_cap=0)
+
+    def grid(bh):
+        return dict(nty=-(-bh // TH), ntx=ntx, tile_h=TH, tile_w=TW)
+
+    def k7_inputs(gb, y0, bh):
+        tl = lighting.cull_lights_to_tiles(gb.depth, li, scfg, view_proj, tile=(TH, TW), max_per_tile=cap,
+                                           inv_vp=inv_vp, y_offset=y0, full_height=H)
+        g = grid(bh)
+        NT = g["nty"] * ntx
+        return (lighting_cuda.gbuffer_planes(gb, g["nty"] * TH, ntx * TW), lt, tl.indices.reshape(NT, -1),
+                tl.counts.reshape(NT), lighting_cuda.make_uniforms(state.camera.eye, li, scfg, inv_vp, W, H, y0)), tl
+
+    def k2_inputs_band(b, y0, bh, lists):
+        """The tile renderer's arguments on a band: in-kernel cull, or the
+        prepass lists + dense PCF visibility + bump (config 4 unsplit)."""
+        g = grid(bh)
+        args = (b.counts, b.offs, b.stream, lt, mats,
+                lighting_cuda.make_uniforms(state.camera.eye, li, fcfg, inv_vp, W, H, y0))
+        kw = dict(g, n_lights=L, ik_slots=fused.live_light_slots(fcfg, L), gamma=fcfg.gamma, hdr_out=True)
+        if lists:
+            depth_pre = raster_tiles.raster_depth(b.counts, b.offs, b.stream, **g, y0=y0)[:bh]
+            tl = lighting.cull_lights_to_tiles(depth_pre, li, c4u, view_proj, tile=(TH, TW), max_per_tile=cap,
+                                               inv_vp=inv_vp, y_offset=y0, full_height=H)
+            vis = shadows.shadow_visibility(depth_pre, view_proj, sd, lvp, dense, inv_vp=inv_vp, y_offset=y0,
+                                            full_height=H)
+            NT = g["nty"] * ntx
+            kw.update(ik_slots=0, light_ids=fused.pad_light_ids_to_chunk(tl.indices.reshape(NT, -1)),
+                      light_counts=tl.counts.reshape(NT), bump=(c4u.bump_strength, c4u.bump_frequency),
+                      vis=F.pad(vis, (0, ntx * TW - W, 0, g["nty"] * TH - bh), value=1.0))
+        return args, kw
+
+    # The full frame's kernels, whose rows the bands are held to.
+    fb = bin_triangles(tris.packed, tris.aabb, tris.valid, scfg)
+    fbargs = (fb.counts, fb.offs, fb.stream)
+    fplanes = raster_tiles.raster_tiles(*fbargs, **grid(H))
+    fdepth = raster_tiles.raster_depth(*fbargs, **grid(H))
+    fgb = encode_gbuffer(raster_tiles.fragments_from_planes(fplanes, H, W), state.materials, scfg)
+    fk7, _ = k7_inputs(fgb, 0, H)
+    skw = dict(grid(H), gamma=scfg.gamma)
+    fhdr = lighting_cuda.shade_tiles(*fk7, **skw)
+    fk2 = {lists: k2_inputs_band(fb, 0, H, lists) for lists in (False, True)}
+    fcolor = {lists: fused.fused_tiles(*a, **k)[0] for lists, (a, k) in fk2.items()}
+    full_ms = {"k6": graph_ms(lambda: raster_tiles.raster_tiles(*fbargs, **grid(H)), 20),
+               "k3": graph_ms(lambda: raster_tiles.raster_depth(*fbargs, **grid(H)), 20),
+               "k7": graph_ms(lambda: lighting_cuda.shade_tiles(*fk7, **skw), 20),
+               "k2": graph_ms(lambda: fused.fused_tiles(*fk2[False][0], **fk2[False][1]), 20)}
+
+    # The middle band of 3 and the second of 4: at 1080 rows, rows 360-719
+    # and 270-539.
+    for y0, bh in ((H // 3, H // 3), (H // 4, H // 4)):
+        whole = bh % TH == 0
+        g = grid(bh)
+        NT = g["nty"] * ntx
+        b = bin_triangles(tris.packed, tris.aabb, tris.valid, scfg, bh, y0)
+        bargs = (b.counts, b.offs, b.stream)
+        planes = raster_tiles.raster_tiles(*bargs, **g, y0=y0)
+        pplanes = raster_tiles.raster_tiles_reference(*bargs, **g, y0=y0)
+        depth = raster_tiles.raster_depth(*bargs, **g, y0=y0)
+        pdepth = raster_tiles.raster_depth_reference(*bargs, **g, y0=y0)
+        torch.cuda.synchronize()
+        off = (planes.view(i32) != pplanes.view(i32)).sum((1, 2)).tolist()
+        check(not any(off), f"K6 band {y0}+{bh} not bit-equal to its plain version: elements off {off}")
+        check(torch.equal(planes[:, :bh].view(i32), fplanes[:, y0 : y0 + bh].view(i32)),
+              f"K6 band {y0}+{bh} differs from the full frame's rows")
+        check(torch.equal(depth, pdepth), f"K3 band {y0}+{bh} differs from its plain version")
+        check(torch.equal(depth[:bh].view(i32), fdepth[y0 : y0 + bh].view(i32)),
+              f"K3 band {y0}+{bh} differs from the full frame's rows")
+        check(int(b.overflow) == 0, f"band {y0}+{bh} binning overflow {int(b.overflow)}")
+        covered = float((planes[raster_tiles.PLANE_MID, :bh] >= 0).double().mean())
+        check(covered > 0.02, f"band {y0}+{bh} nearly empty ({covered})")
+
+        gb = encode_gbuffer(raster_tiles.fragments_from_planes(planes, bh, W), state.materials, scfg)
+        sargs, tl = k7_inputs(gb, y0, bh)
+        bskw = dict(g, gamma=scfg.gamma)
+        hdr = lighting_cuda.shade_tiles(*sargs, **bskw)
+        phdr = lighting_cuda.shade_tiles_reference(*sargs, **bskw)
+        torch.cuda.synchronize()
+        off7 = int((hdr.view(i32) != phdr.view(i32)).sum())
+        check(off7 == 0, f"K7 band {y0}+{bh} differs from its plain version on {off7} values")
+        check(int(tl.overflow) == 0, f"K7 band {y0}+{bh} light overflow {int(tl.overflow)}")
+        img = [u8(post.apply_post(h[:, :bh].permute(1, 2, 0), scfg)) for h in (hdr, fhdr[:, y0 : y0 + bh])]
+        k7_rows = frame_stats(*img)
+        if whole:
+            check(torch.equal(hdr.view(i32), fhdr[:, y0 : y0 + bh].view(i32)),
+                  f"K7 band {y0}+{bh} differs from the full frame's rows")
+        else:
+            check(k7_rows["max_u8"] <= 1 and k7_rows["frac_diff"] < 0.01,
+                  f"K7 band {y0}+{bh} vs the full frame's rows: {k7_rows}")
+        line = {"phase": "bands_kernels", "ok": True, "band": f"rows {y0}-{y0 + bh - 1}",
+                "whole_tiles": whole, "binned_pairs": int(b.counts.sum()), "covered_frac": covered,
+                "k6": {"bit_equal_to_plain": True, "bit_equal_to_full_rows": True},
+                "k3": {"equal_to_plain": True, "bit_equal_to_full_rows": True,
+                       "neg_zero_in_plain": int((pdepth.view(i32) == -2**31).sum())},
+                "k7": {"bit_equal_to_plain": True, "vs_full_rows": k7_rows,
+                       "max_live_lights_in_a_tile": int(tl.counts.max())}}
+        if whole:
+            line["k2"] = {}
+            for lists in (False, True):
+                args, kw = k2_inputs_band(b, y0, bh, lists)
+                color, tovf = fused.fused_tiles(*args, **kw)
+                pcolor, ptovf, live = fused.fused_tiles_reference(*args, **kw, return_live=True)
+                torch.cuda.synchronize()
+                name = "lists_vis_bump" if lists else "inkernel_cull"
+                check(torch.equal(tovf, ptovf) and not bool(tovf.any()), f"K2 band ({name}) tile overflow")
+                st = frame_stats(*(u8(post.gamma_encode(post.reinhard(c[:, :bh]), fcfg.gamma)).permute(1, 2, 0)
+                                   for c in (color, pcolor)))
+                check(st["max_u8"] <= 1 and st["frac_diff"] < 0.01, f"K2 band ({name}) vs plain: {st}")
+                check(torch.equal(color.view(i32), fcolor[lists][:, y0 : y0 + bh].view(i32)),
+                      f"K2 band ({name}) differs from the full frame's rows")
+                k2_err = float((color - pcolor).abs().max())
+                line["k2"][name] = {"vs_plain": st, "max_abs_err": k2_err, "bit_equal_to_full_rows": True,
+                                    "max_live_lights_in_a_tile": int(live.max())}
+                if not lists:
+                    k2args, k2kw, k2live, k2color = args, kw, live, color
+        # Timings and bounds, band beside full frame.
+        dev_ms = {"k6": graph_ms(lambda: raster_tiles.raster_tiles(*bargs, **g, y0=y0), 20),
+                  "k3": graph_ms(lambda: raster_tiles.raster_depth(*bargs, **g, y0=y0), 20),
+                  "k7": graph_ms(lambda: lighting_cuda.shade_tiles(*sargs, **bskw), 20)}
+        if whole:
+            dev_ms["k2"] = graph_ms(lambda: fused.fused_tiles(*k2args, **k2kw), 20)
+        line["device_ms"] = dev_ms
+        line["full_frame_device_ms"] = full_ms
+        emit(line)
+        if not whole:
+            continue
+        pairs = int(b.counts.sum())
+        box_px = raster_box_pixels(*bargs, ntx, TH, TW, y0)
+        cov = per_tile_covered(planes[raster_tiles.PLANE_DEPTH], TH, TW)
+        k6_b = bound(pairs * 128 + 4 * (2 * NT + 1) + 4 * planes.numel(), box_px * RASTER_OPS_PER_RECORD_PIXEL)
+        k3_b = bound(pairs * 128 + 4 * (2 * NT + 1) + 4 * depth.numel(), box_px * RASTER_OPS_PER_RECORD_PIXEL)
+        n_planes, plane = sargs[0].shape[0], sargs[0][0].numel()
+        k7_pairs = int((cov * tl.counts.reshape(NT)).sum())
+        k7_b = bound(4 * (plane + (n_planes - 1) * int(cov.sum()) + int(tl.counts.sum()) + NT + 32 + hdr.numel())
+                     + 32 * L, int(cov.sum()) * SHADE_OPS_PER_PIXEL + k7_pairs * SHADE_OPS_PER_PIXEL_LIGHT)
+        k2_b = bound(pairs * 128 + 4 * (2 * NT + 1) + 4 * (lt.numel() + mats.numel() + 32) + 4 * k2color.numel()
+                     + 4 * NT, box_px * RASTER_OPS_PER_RECORD_PIXEL + int(cov.sum()) * SHADE_OPS_PER_PIXEL
+                     + int((cov * k2live).sum()) * SHADE_OPS_PER_PIXEL_LIGHT)
+        src = "d3d12_deferred_renderer_tpu_torch/csrc/"
+        tpu = "d3d12_deferred_renderer_tpu/ops/"
+        for key, name, file, replaces, err, call, plain, bnd in (
+            ("k6_band", "raster_tiles (band)", "raster.cu", "raster_pallas.py:956",
+             float((planes - pplanes).abs().max()), lambda: raster_tiles.raster_tiles(*bargs, **g, y0=y0),
+             lambda: raster_tiles.raster_tiles_reference(*bargs, **g, y0=y0), k6_b),
+            ("k3_band", "raster_depth (band)", "raster.cu", "raster_pallas.py:856", 0.0,
+             lambda: raster_tiles.raster_depth(*bargs, **g, y0=y0),
+             lambda: raster_tiles.raster_depth_reference(*bargs, **g, y0=y0), k3_b),
+            ("k7_band", "shade_tiles (band)", "shade.cu", "lighting_pallas.py:95",
+             float((hdr - phdr).abs().max()), lambda: lighting_cuda.shade_tiles(*sargs, **bskw),
+             lambda: lighting_cuda.shade_tiles_reference(*sargs, **bskw), k7_b),
+            ("k2_band", "fused_tiles (band)", "fused.cu", "fused.py:726", line["k2"]["inkernel_cull"]["max_abs_err"],
+             lambda: fused.fused_tiles(*k2args, **k2kw), lambda: fused.fused_tiles_reference(*k2args, **k2kw),
+             k2_b),
+        ):
+            kernels[key] = dict(
+                name=name, route="cuda", source=src + file, replaces=tpu + replaces, launches=0,
+                max_abs_err=err, ms=cuda_ms(call, 20), plain_ms=cuda_ms(plain, 1), **bnd, library_ms=None,
+                device_ms=dev_ms[key[:2]], full_frame_device_ms=full_ms[key[:2]], band=f"rows {y0}-{y0 + bh - 1}",
+            )
+
+
+def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
+    """render_sharded's paths (BAND_PATHS_3 in 3 ranks, BAND_PATHS_4 in 4),
+    the ranks sharing this card through a gloo group: each rank's launches
+    (every band kernel of the path launched once a frame), the summed
+    overflow 0 at the sampled orbit steps, the ranks' frames equal, and the
+    assembled frame of the last sampled step against the single-device
+    render_stats of the same state.  One line a path; the band kernels'
+    launches go to the kernels line."""
+    import torch
+
+    from d3d12_deferred_renderer_tpu_torch.parallel import run_bands
+
+    scenes = {label: tp.arrays_from_state(c1_state0 if changes is None else state0)
+              for label, changes, _ in BAND_PATHS_3 + BAND_PATHS_4}
+    band_launches = {"raster_tiles": 0, "raster_depth": 0, "shade_tiles": 0, "fused_tiles": 0}
+    for n, paths in ((3, BAND_PATHS_3), (4, BAND_PATHS_4)):
+        t0 = time.perf_counter()
+        ranks = run_bands(n, bands_job, (scenes, paths), device="cuda", timeout_s=300.0)
+        spawn_s = time.perf_counter() - t0
+        for k, (label, changes, contract) in enumerate(paths):
+            res = [r[k] for r in ranks]
+            cfg = band_path_config(tp, changes)
+            frames = res[0]["frames"]
+            expect = {w: 0 for w in res[0]["launches"]}
+            expect.update({w: c * frames for w, c in BAND_PATH_LAUNCHES[label].items()})
+            for r in res:
+                check(r["frames"] == frames and r["launches"] == expect,
+                      f"bands {label}: rank {r['rank']} launches {r['launches']}, expected {expect}")
+                check(r["sampled_overflow"] == res[0]["sampled_overflow"] and r["frame_sum"] == res[0]["frame_sum"],
+                      f"bands {label}: ranks disagree")
+            for w in band_launches:
+                band_launches[w] += sum(r["launches"][w] for r in res)
+            # Each shadow map is one depth-only setup and one depth raster of
+            # the whole map, not of a band.
+            band_launches["raster_depth"] -= sum(r["launches"]["setup_depth_triangles"] for r in res)
+            check(max(res[0]["sampled_overflow"]) == 0,
+                  f"bands {label}: overflow {res[0]['sampled_overflow']} over the orbit")
+            last = band_sweep_states(tp, c1_state0 if changes is None else state0, cfg)[-1]
+            single, stats = tp.render_stats(last, cfg)
+            check(int(stats["overflow"]) == 0, f"bands {label}: single-device overflow {int(stats['overflow'])}")
+            frame = torch.from_numpy(res[0]["frame"]).to(dev)
+            check(frame.shape == single.shape, f"bands {label}: frame shape {tuple(frame.shape)}")
+            st = frame_stats(frame, single)
+            if contract == "exact":
+                check(st["max_u8"] == 0, f"bands {label}: assembled frame vs single device: {st}")
+            else:
+                check(st["max_u8"] <= 1 and st["frac_diff"] < 2e-3,
+                      f"bands {label}: assembled frame vs single device: {st}")
+            covered = float((frame.amax(-1) > 0).double().mean())
+            check(covered > 0.02, f"bands {label}: frame nearly blank ({covered})")
+            emit({"phase": "bands", "ok": True, "path": label, "ranks": n, "band_rows": cfg.height // n,
+                  "resolution": f"{cfg.width}x{cfg.height}", "frames_per_rank": frames,
+                  "launches_per_rank": {w: c for w, c in res[0]["launches"].items() if c},
+                  "sampled_steps": len(res[0]["sampled_overflow"]), "sampled_overflow": res[0]["sampled_overflow"],
+                  "vs_single_device": st, "covered_frac": covered,
+                  "ms_per_frame_by_rank": [min(p[0] for p in r["passes"]) for r in res],
+                  "host_ms_per_frame_by_rank": [min(p[1] for p in r["passes"]) for r in res],
+                  "timing": "CUDA events around 10 frames of each rank, best of 2 passes; the ranks share "
+                            "one card, so this shows correctness, not speed",
+                  "spawn_and_run_seconds": spawn_s})
+    for key, w in (("k6_band", "raster_tiles"), ("k3_band", "raster_depth"), ("k7_band", "shade_tiles"),
+                   ("k2_band", "fused_tiles")):
+        kernels[key]["launches"] = band_launches[w]
+        check(band_launches[w] > 0, f"{w} never launched on the band paths")
 
 
 def time_staged(root: str, passes: int = 3) -> int:

@@ -10,8 +10,10 @@ each with the config-4 stack (shadow map, procedural bump, bloom, FXAA),
 through hand-written kernels; the fused frame culls lights in its kernel or
 takes per-tile lists from a depth prepass, and takes shadows as a
 visibility plane or through the deferred-directional split.  calibrate
-derives a scene's capacity budgets.  frame.check_ported says which configs
-raise NotImplementedError.  Scenes live on the CUDA device unless the caller
+derives a scene's capacity budgets.  parallel.render_sharded renders a
+frame as row bands over a torch.distributed group (make_rows_group joins
+one; parallel.run_bands runs N ranks on one host).  frame.check_ported
+says which configs raise NotImplementedError.  Scenes live on the CUDA device unless the caller
 passes device="cpu"; a CUDA kernel runs for tensors on a CUDA device, its
 plain PyTorch version for tensors on the CPU.
 """
@@ -31,7 +33,8 @@ from .scene import (
     make_scene,
     random_point_lights,
 )
-from . import xmath
+from . import parallel, xmath
+from .parallel import make_rows_group, render_sharded
 
 __all__ = [
     "RendererConfig",
@@ -43,6 +46,9 @@ __all__ = [
     "render_stats",
     "render_gbuffer",
     "step_frame",
+    "render_sharded",
+    "make_rows_group",
+    "parallel",
     "build_scene_geometry",
     "build_instanced_geometry",
     "load_obj",

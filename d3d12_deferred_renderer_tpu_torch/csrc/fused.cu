@@ -16,6 +16,11 @@
 // version is ops/fused.py:fused_tiles_reference, and the arithmetic below
 // follows it operation for operation, in the same association order.
 //
+// Band mode (the screen-row band path): the uniforms' U_Y0 is the grid's
+// first pixel row in the frame and U_H the frame's height, so a band's
+// pixel centres, world positions, cull slabs and shading are the full
+// frame's; the output is the band's own rows, linear HDR (hdr_out).
+//
 // One block of 512 threads per tile (up to 1024 pixels, 8 x 128 in the
 // flagship config); thread tid owns pixels tid + 512 * j, j < 2, so a warp
 // writes neighbouring pixels of one row.  The block keeps the whole tile:
@@ -128,14 +133,17 @@ fused_tile_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   if (tid < 32) s_u[tid] = uniforms[tid];
   __syncthreads();  // a tile with no records reaches the cull with no other barrier
 
+  // The tile grid's first pixel row in the frame (a band's; 0 for a whole
+  // frame): pixel centres and world positions are the full frame's.
+  const int y0 = (int)s_u[shade::U_Y0];
   float px[kPix], py[kPix];
   bool inb[kPix];
-  raster::tile_pixel_centers<kPix, kThreads>(ty, tx, tile_h, tile_w, px, py, inb);
+  raster::tile_pixel_centers<kPix, kThreads>(ty, tx, tile_h, tile_w, y0, px, py, inb);
 
   // ---- 1-2. raster the tile's records in submission order ----
   float depth[kPix], nrm[3][kPix], uv[2][kPix], mid[kPix];
   raster::raster_tile<kBump>(stream, offs[tile], counts[tile], sm, (float)((tx + 1) * tile_w),
-                             (float)((ty + 1) * tile_h), px, py, inb, depth, nrm, uv, mid);
+                             (float)((ty + 1) * tile_h + y0), px, py, inb, depth, nrm, uv, mid);
 
   // ---- 3. the tile's lights: exact cull against two eye-distance slabs,
   // or the tile's row of the light lists ----

@@ -62,6 +62,11 @@
 // are 16 x 128 = 2048 pixels: 256 threads of 8 pixels each (NP = 8); screen
 // tiles of up to 1024 pixels take NP = 4.
 //
+// Band mode.  y0, the grid's first pixel row in the frame, shifts every
+// pixel centre (raster.cuh's tile_pixel_centers, the resolve below) and the
+// record boxes' coordinate bound; the key and output planes stay the band's
+// own rows.  A band's planes are those rows of the full frame's, bit for bit.
+//
 // Bounds.  The planes: the output, 32 bytes a pixel (66 MB at 1920x1080),
 // over the card's memory rate, against about 26 operations per pixel inside
 // a binned record's box for the edge tests; the records come through
@@ -149,8 +154,8 @@ __device__ bool work_item(const int* __restrict__ counts, int n_tiles, int R, in
 // winning row, and merge it into the keys.
 __global__ void __launch_bounds__(kThreads)
 raster_rows_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
-                   const float* __restrict__ stream, int n_tiles, int ntx, int tile_h, int tile_w, int R,
-                   unsigned long long* __restrict__ keys, int Wp) {
+                   const float* __restrict__ stream, int n_tiles, int ntx, int tile_h, int tile_w, int y0,
+                   int R, unsigned long long* __restrict__ keys, int Wp) {
   __shared__ raster::Smem sm;
   __shared__ int s_warp[kWarps];
   __shared__ int s_item[3];
@@ -160,11 +165,11 @@ raster_rows_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
 
   float px[kPix], py[kPix];
   bool inb[kPix];
-  raster::tile_pixel_centers(ty, tx, tile_h, tile_w, px, py, inb);
+  raster::tile_pixel_centers(ty, tx, tile_h, tile_w, y0, px, py, inb);
   float depth[kPix], nrm[3][kPix], uv[2][kPix], mid[kPix];
   int win[kPix] = {};
   raster::raster_tile<false, kPix, raster::Out::kRow>(stream, offs[tile] + k0, min(R, counts[tile] - k0), sm,
-                                                      (float)((tx + 1) * tile_w), (float)((ty + 1) * tile_h),
+                                                      (float)((tx + 1) * tile_w), (float)((ty + 1) * tile_h + y0),
                                                       px, py, inb, depth, nrm, uv, mid, win);
 #pragma unroll
   for (int j = 0; j < kPix; ++j) {
@@ -182,7 +187,7 @@ raster_rows_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
 // computes it.
 __global__ void __launch_bounds__(kThreads)
 resolve_rows_kernel(const unsigned long long* __restrict__ keys, const float* __restrict__ stream,
-                    int tile_h, int tile_w, float* __restrict__ planes, int Hp, int Wp) {
+                    int tile_h, int tile_w, int y0, float* __restrict__ planes, int Hp, int Wp) {
   const size_t plane = (size_t)Hp * Wp;
   const size_t o = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (o >= plane) return;
@@ -193,7 +198,7 @@ resolve_rows_kernel(const unsigned long long* __restrict__ keys, const float* __
     const int y = (int)(o / Wp), x = (int)(o % Wp);
     const int ty = y / tile_h, tx = x / tile_w;
     const float px = ((float)(tx * tile_w) + 0.5f) + (float)(x - tx * tile_w);
-    const float py = ((float)(ty * tile_h) + 0.5f) + (float)(y - ty * tile_h);
+    const float py = ((float)(ty * tile_h + y0) + 0.5f) + (float)(y - ty * tile_h);
     raster::Edges E;
     raster::record_edges(r, E);
     const float inv_area = 1.0f / r[raster::TRI_AREA];
@@ -215,7 +220,7 @@ template <int NP>
 __global__ void __launch_bounds__(kThreads)
 raster_depth_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                     const float* __restrict__ stream, int n_tiles, int ntx, int tile_h,
-                    int tile_w, int R, unsigned* __restrict__ depth_out, int Wp) {
+                    int tile_w, int y0, int R, unsigned* __restrict__ depth_out, int Wp) {
   __shared__ raster::Smem sm;
   __shared__ int s_warp[kWarps];
   __shared__ int s_item[3];
@@ -225,10 +230,10 @@ raster_depth_kernel(const int* __restrict__ counts, const int* __restrict__ offs
 
   float px[NP], py[NP];
   bool inb[NP];
-  raster::tile_pixel_centers(ty, tx, tile_h, tile_w, px, py, inb);
+  raster::tile_pixel_centers(ty, tx, tile_h, tile_w, y0, px, py, inb);
   float depth[NP], nrm[3][NP], uv[2][NP], mid[NP];
   raster::raster_tile<false, NP, raster::Out::kDepth>(stream, offs[tile] + k0, min(R, counts[tile] - k0), sm,
-                                                      (float)((tx + 1) * tile_w), (float)((ty + 1) * tile_h),
+                                                      (float)((tx + 1) * tile_w), (float)((ty + 1) * tile_h + y0),
                                                       px, py, inb, depth, nrm, uv, mid);
 #pragma unroll
   for (int j = 0; j < NP; ++j) {
@@ -243,10 +248,11 @@ raster_depth_kernel(const int* __restrict__ counts, const int* __restrict__ offs
 
 }  // namespace
 
-// depth [nty * tile_h, ntx * tile_w] f32, written through its bits; R the
-// records of a work item, rows the stream's rows (a bound on every count).
+// depth [nty * tile_h, ntx * tile_w] f32, written through its bits; y0 the
+// grid's first pixel row in the frame; R the records of a work item, rows
+// the stream's rows (a bound on every count).
 extern "C" int raster_depth_launch(const int* counts, const int* offs, const float* stream, int rows,
-                                   int nty, int ntx, int tile_h, int tile_w, int R, float* depth,
+                                   int nty, int ntx, int tile_h, int tile_w, int y0, int R, float* depth,
                                    cudaStream_t cs) {
   const int n_tiles = nty * ntx;
   if (n_tiles > 0) {
@@ -255,18 +261,18 @@ extern "C" int raster_depth_launch(const int* counts, const int* offs, const flo
     const int grid = n_tiles + (rows + R - 1) / R;
     if (tile_h * tile_w <= kThreads * kPix)
       raster_depth_kernel<kPix><<<grid, kThreads, 0, cs>>>(counts, offs, stream, n_tiles, ntx, tile_h,
-                                                           tile_w, R, out, ntx * tile_w);
+                                                           tile_w, y0, R, out, ntx * tile_w);
     else
       raster_depth_kernel<2 * kPix><<<grid, kThreads, 0, cs>>>(counts, offs, stream, n_tiles, ntx,
-                                                               tile_h, tile_w, R, out, ntx * tile_w);
+                                                               tile_h, tile_w, y0, R, out, ntx * tile_w);
   }
   return (int)cudaGetLastError();
 }
 
 // planes [8, nty * tile_h, ntx * tile_w] f32; keys [nty * tile_h * ntx *
-// tile_w] u64 scratch; R and rows as for the depth.
+// tile_w] u64 scratch; y0, R and rows as for the depth.
 extern "C" int raster_tiles_launch(const int* counts, const int* offs, const float* stream, int rows,
-                                   int nty, int ntx, int tile_h, int tile_w, int R,
+                                   int nty, int ntx, int tile_h, int tile_w, int y0, int R,
                                    unsigned long long* keys, float* planes, cudaStream_t cs) {
   const int n_tiles = nty * ntx;
   if (n_tiles > 0) {
@@ -274,9 +280,9 @@ extern "C" int raster_tiles_launch(const int* counts, const int* offs, const flo
     const size_t n = (size_t)Hp * Wp;
     fill(keys, n, kNoWinner, cs);
     raster_rows_kernel<<<n_tiles + (rows + R - 1) / R, kThreads, 0, cs>>>(counts, offs, stream, n_tiles, ntx,
-                                                                          tile_h, tile_w, R, keys, Wp);
+                                                                          tile_h, tile_w, y0, R, keys, Wp);
     resolve_rows_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, cs>>>(
-        keys, stream, tile_h, tile_w, planes, Hp, Wp);
+        keys, stream, tile_h, tile_w, y0, planes, Hp, Wp);
   }
   return (int)cudaGetLastError();
 }

@@ -73,10 +73,12 @@ __device__ __forceinline__ float sum3(float b0, float b1, float b2, const float*
   return __fmaf_rn(b2, a[2 * step], __fmaf_rn(b0, a[0], b1 * a[step]));
 }
 
-// Pixel centers of this thread's pixels of tile (ty, tx), and which of them
-// lie inside the tile.
+// Pixel centers of this thread's pixels of tile (ty, tx) of a grid whose
+// first pixel row is y0 (a band of a taller frame; 0 for a whole frame),
+// and which of them lie inside the tile.  A frame's rows stay far below
+// 2^24, so every centre is exact in float32.
 template <int NP, int kT = kThreads>
-__device__ __forceinline__ void tile_pixel_centers(int ty, int tx, int tile_h, int tile_w,
+__device__ __forceinline__ void tile_pixel_centers(int ty, int tx, int tile_h, int tile_w, int y0,
                                                    float (&px)[NP], float (&py)[NP],
                                                    bool (&inb)[NP]) {
   const int P = tile_h * tile_w;
@@ -84,7 +86,7 @@ __device__ __forceinline__ void tile_pixel_centers(int ty, int tx, int tile_h, i
   for (int j = 0; j < NP; ++j) {
     const int i = threadIdx.x + j * kT;
     inb[j] = i < P;
-    py[j] = ((float)(ty * tile_h) + 0.5f) + (float)(i / tile_w);
+    py[j] = ((float)(ty * tile_h + y0) + 0.5f) + (float)(i / tile_w);
     px[j] = ((float)(tx * tile_w) + 0.5f) + (float)(i % tile_w);
   }
 }

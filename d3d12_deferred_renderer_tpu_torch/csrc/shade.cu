@@ -25,6 +25,12 @@
 //    there is one, the point-light GGX loop, ambient.  Background pixels
 //    (depth not below 1) are 0.  Output [3, Hp, Wp] f32.
 //
+// Band mode: the uniforms' U_Y0 is the first pixel row of the planes in the
+// frame and U_H the frame's height.  A band whose height is not a multiple
+// of tile_h has padded rows in its last tile row; the wrapper pads them
+// with depth 1, so they shade to 0 like background and are cropped, and
+// each thread writes only its own pixel of the band's planes.
+//
 // Bound: the point-light loop, about 120 operations per covered pixel and
 // live light (six IEEE divisions and two rsqrt among them), against 48 bytes
 // a pixel of planes in and out (about 100 MB at 1920x1080).  The loop's
@@ -92,8 +98,10 @@ shade_tile_kernel(const float* __restrict__ planes, int n_planes, const float* _
   const float metal = planes[P_MET * plane + o], rough = planes[P_RGH * plane + o];
   const float vis = n_planes > P_VIS ? planes[P_VIS * plane + o] : 1.0f;
 
+  // Rows from U_Y0 on: a band of a frame U_H rows high (raster.cuh's
+  // tile_pixel_centers computes the same centres).
   const float px = ((float)(tx * tile_w) + 0.5f) + (float)col;
-  const float py = ((float)(ty * tile_h) + 0.5f) + (float)row;
+  const float py = ((float)(ty * tile_h + (int)s_u[shade::U_Y0]) + 0.5f) + (float)row;
   float wpos[3];
   shade::world_from_depth(s_u, px, py, depth, wpos);
   // shade.cuh's shade_pixel, its loop two lights a step.

@@ -16,9 +16,11 @@ namespace shade {
 constexpr float kPi = (float)3.141592653589793;
 constexpr float kInvPi = (float)(1.0 / 3.141592653589793);
 
-// uniforms layout (ops/lighting_cuda.py U_*)
+// uniforms layout (ops/lighting_cuda.py U_*).  U_H is the full frame's
+// height and U_Y0 the first pixel row of the rows a kernel shades (a band
+// of the frame; 0 for a whole frame).
 constexpr int U_INV_VP = 0, U_EYE = 16, U_LDIR = 19, U_LCOLOR = 22, U_AMBIENT = 25, U_W = 26,
-              U_H = 27, U_TONEMAP = 28, U_SIZE = 32;
+              U_H = 27, U_TONEMAP = 28, U_Y0 = 29, U_SIZE = 32;
 
 __device__ __forceinline__ float rsqrt_guarded(float x2, float eps) {
   return x2 == 0.0f ? 1.0f : rsqrtf(maxp(x2, eps));

@@ -54,11 +54,11 @@ def _fused_eligible(cfg: RendererConfig) -> bool:
 
 
 # Configs outside the ported slice, with the ROADMAP.md Queue 1 item that
-# ports them.
+# holds them.
 _NOT_PORTED = (
     (lambda c: c.shadows and c.shadow_window_gather,
-     "the shadow window gather (rejected by design; item 7)"),
-    (lambda c: c.supersample > 1, "supersampling (item 9)"),
+     "the shadow window gather (off in the JAX package, its measured loss; item 9)"),
+    (lambda c: c.supersample > 1, "supersampling (item 2)"),
 )
 
 

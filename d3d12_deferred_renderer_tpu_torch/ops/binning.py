@@ -22,6 +22,13 @@ Two paths with identical semantics:
 
 Every capacity cap (K triangles per tile, each tier budget, the stream
 capacity) adds to ``overflow`` instead of dropping work silently.
+
+Band mode (``band_h``, ``y_offset``: the screen-row band path,
+parallel/sharded.py) bins the tiles of rows [y_offset, y_offset + band_h)
+of the full frame only; tile row ty starts at pixel row y_offset + ty *
+tile_h.  The tier budgets still scale with the full frame's area: a
+triangle's tile span is not clipped by a band, so a band's footprints are
+the full frame's and a band-area scale would under-budget the tiers.
 """
 from __future__ import annotations
 
@@ -49,22 +56,23 @@ class BinnedTriangles(NamedTuple):
     offs: torch.Tensor | None = None    # [NT + 1] int32 segment offsets
 
 
-def _grid(cfg: RendererConfig):
-    nty = -(-cfg.height // cfg.tile_h)
+def _grid(cfg: RendererConfig, band_h: int | None = None):
+    nty = -(-(band_h or cfg.height) // cfg.tile_h)
     ntx = -(-cfg.width // cfg.tile_w)
     return nty, ntx
 
 
-def bin_triangles_flat(aabb, valid, cfg: RendererConfig) -> BinnedTriangles:
+def bin_triangles_flat(aabb, valid, cfg: RendererConfig, band_h: int | None = None,
+                       y_offset: int = 0) -> BinnedTriangles:
     """Overlap-matrix binning: tile (ty, tx) takes every valid triangle whose
-    AABB satisfies minx < x0 + TW, maxx >= x0 (and likewise in y); the first
-    K in submission order are kept."""
-    nty, ntx = _grid(cfg)
+    AABB satisfies minx < x0 + TW, maxx >= x0 (and likewise in y, y0 =
+    y_offset + ty * TH); the first K in submission order are kept."""
+    nty, ntx = _grid(cfg, band_h)
     TH, TW = cfg.tile_h, cfg.tile_w
     T = aabb.shape[0]
     K = min(cfg.max_tris_per_tile, T)
     dev = aabb.device
-    y0s = torch.arange(nty, dtype=torch.float32, device=dev) * TH
+    y0s = y_offset + torch.arange(nty, dtype=torch.float32, device=dev) * TH
     x0s = torch.arange(ntx, dtype=torch.float32, device=dev) * TW
     minx, miny, maxx, maxy = aabb.unbind(1)
     ox = (minx[None, :] < x0s[:, None] + TW) & (maxx[None, :] >= x0s[:, None])
@@ -100,10 +108,12 @@ def with_stream(binned: BinnedTriangles, packed, cap: int) -> BinnedTriangles:
     )
 
 
-def bin_triangles(packed, aabb, valid, cfg: RendererConfig) -> BinnedTriangles:
-    """Bin the [T, 32] triangle records onto the cfg tile grid (see module
-    docstring) -> counts, overflow, the record stream and its offsets."""
-    nty, ntx = _grid(cfg)
+def bin_triangles(packed, aabb, valid, cfg: RendererConfig, band_h: int | None = None,
+                  y_offset: int = 0) -> BinnedTriangles:
+    """Bin the [T, 32] triangle records onto the cfg tile grid, or with
+    band_h onto the band's (see module docstring) -> counts, overflow, the
+    record stream and its offsets."""
+    nty, ntx = _grid(cfg, band_h)
     NT = nty * ntx
     T = packed.shape[0]
     K = min(cfg.max_tris_per_tile, T)
@@ -111,10 +121,11 @@ def bin_triangles(packed, aabb, valid, cfg: RendererConfig) -> BinnedTriangles:
     dev = packed.device
 
     if T * NT <= FLAT_CELLS:
-        return with_stream(bin_triangles_flat(aabb, valid, cfg), packed, cfg.bin_stream_cap)
+        return with_stream(bin_triangles_flat(aabb, valid, cfg, band_h, y_offset), packed,
+                           cfg.bin_stream_cap)
 
-    # Tier budgets scale with the framebuffer area (base 1080p): at 4K a
-    # triangle's tile footprint quadruples.
+    # Tier budgets scale with the full framebuffer's area (base 1080p), in
+    # band mode too: at 4K a triangle's tile footprint quadruples.
     area_scale = max(1, round((cfg.height * cfg.width) / (1920 * 1080)))
     E = max(1, cfg.bin_expand * area_scale)
     EM = max(E + 1, cfg.bin_expand_medium * area_scale)
@@ -132,8 +143,8 @@ def bin_triangles(packed, aabb, valid, cfg: RendererConfig) -> BinnedTriangles:
     minx, miny, maxx, maxy = aabb.unbind(1)
     tx0 = torch.floor(minx / TW).to(I32)
     tx1 = torch.floor(maxx / TW).to(I32)
-    ty0 = torch.floor(miny / TH).to(I32)
-    ty1 = torch.floor(maxy / TH).to(I32)
+    ty0 = torch.floor((miny - y_offset) / TH).to(I32)
+    ty1 = torch.floor((maxy - y_offset) / TH).to(I32)
     live = valid & (tx1 >= 0) & (tx0 < ntx) & (ty1 >= 0) & (ty0 < nty)
     tx0, tx1 = tx0.clamp(0, ntx - 1), tx1.clamp(0, ntx - 1)
     ty0, ty1 = ty0.clamp(0, nty - 1), ty1.clamp(0, nty - 1)

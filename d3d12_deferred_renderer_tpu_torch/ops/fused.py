@@ -46,6 +46,11 @@ pair for the resolve kernel.  Step 1 is the tile raster of
 ops/raster_tiles.py, the bump that of ops/bump.py and step 4 the shading of
 ops/lighting_cuda.py, in plain PyTorch and in the kernels alike
 (csrc/raster.cuh, csrc/bump.cuh, csrc/shade.cuh).
+
+Band mode (``render_fused``'s ``band_h`` / ``y_offset``, the screen-row band
+path) renders rows [y_offset, y_offset + band_h) of the frame through the
+same kernels, the uniforms' U_Y0 giving the band's first row, and returns
+its linear HDR for the caller's post.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ from .bump import bump_planar
 from .gbuffer import quantize_unorm
 from .lighting import cull_lights_to_tiles, inverse_view_proj
 from .lighting_cuda import (
-    U_EYE, U_H, U_LDIR, U_SIZE, U_TONEMAP, U_W, build_light_table, directional_radiance, dot3,
+    U_EYE, U_H, U_LDIR, U_SIZE, U_TONEMAP, U_W, U_Y0, build_light_table, directional_radiance, dot3,
     make_uniforms, shade_pixels_reference, view_dirs, world_from_depth,
 )
 from .raster_tiles import image_to_tiles, raster_depth, raster_tile_pixels, tile_pixels, tiles_to_image
@@ -148,7 +153,8 @@ def fused_tiles_reference(
 
     counts [NT] int32, offs [NT + 1] int32, stream [R, 32] f32 (tile t's
     records are rows offs[t] .. offs[t] + counts[t]), lights [>= L, 8],
-    mats [>= 8, 8], uniforms [32].  The lights of a tile come from the
+    mats [>= 8, 8], uniforms [32] (the grid's first pixel row in the frame
+    is uniforms[U_Y0]).  The lights of a tile come from the
     in-kernel cull of n_lights lights into ik_slots slots or, when
     ``light_ids`` [NT, Lk] int32 and ``light_counts`` [NT] int32 are given,
     from the tile's first count ids (the count clamped to [0, Lk], each id
@@ -173,6 +179,7 @@ def fused_tiles_reference(
     NT = nty * ntx
     px, py = tile_pixels(nty, ntx, tile_h, tile_w, dev)
     u = uniforms
+    py = py + u[U_Y0]
 
     # ---- raster (ops/raster_tiles; uv only for the bump) ----
     frags = raster_tile_pixels(counts, offs, stream, px, py, uv=bump is not None)
@@ -397,38 +404,50 @@ def finish_frame(color, cfg: RendererConfig, hdr: bool) -> torch.Tensor:
     return post.to_uint8(color)
 
 
-def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool = False):
+def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool = False,
+                 band_h: int | None = None, y_offset: int = 0):
     """Fused tiled-deferred frame -> uint8 [H, W, 3] (and, with
     return_overflow, the int32 overflow count: the binning's, the light
     cull's (tiles whose live lights exceeded their slots or list) and, with
-    shadows, the shadow map's binning and the PCF tile cap).  Whole frames;
-    the JAX package's conditions decide the branches: the in-kernel cull
-    when cfg.inkernel_light_cull and there are point lights, the split when
-    cfg.deferred_directional and cfg.shadows, and the depth prepass when the
-    lists or the unsplit shadows need it."""
-    H, W = cfg.height, cfg.width
+    shadows, the shadow map's binning and the PCF tile cap).  The JAX
+    package's conditions decide the branches: the in-kernel cull when
+    cfg.inkernel_light_cull and there are point lights, the split when
+    cfg.deferred_directional and cfg.shadows (never in band mode), and the
+    depth prepass when the lists or the unsplit shadows need it.
+
+    With band_h (a multiple of cfg.tile_h, else ValueError) the whole chain
+    (binning, prepass, light cull, dense PCF, the tile kernel) runs on rows
+    [y_offset, y_offset + band_h) of the frame and returns the band's linear
+    HDR [band_h, W, 3]: bloom, tonemap, gamma and FXAA belong to the caller
+    (parallel/sharded.py)."""
+    band = band_h is not None
+    H, W = band_h or cfg.height, cfg.width
     TH, TW = cfg.tile_h, cfg.tile_w
+    if band and H % TH:
+        raise ValueError(f"fused band height {H} must be a multiple of tile_h={TH}")
     nty, ntx = -(-H // TH), -(-W // TW)
     li = state.lights
     L = li.num_point
     ik = cfg.inkernel_light_cull and L > 0
-    split = cfg.deferred_directional and cfg.shadows
+    split = cfg.deferred_directional and cfg.shadows and not band
+    rows = dict(y_offset=y_offset, full_height=cfg.height if band else None)
 
     tris, view_proj = setup_frame_triangles(state, cfg)
-    binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
+    binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg, band_h, y_offset)
     inv_vp = inverse_view_proj(view_proj)
     mats = build_material_table(state.materials, cfg.gamma)
-    uniforms = make_uniforms(state.camera.eye, li, cfg, inv_vp, W, H)
+    uniforms = make_uniforms(state.camera.eye, li, cfg, inv_vp, W, cfg.height, y_offset)
     overflow = binned.overflow
     depth_pre = light_ids = light_counts = vis = None
     if (L and not ik) or (cfg.shadows and not split):
         # The depth prepass on the frame's own binned records: bit-equal to
         # the tile kernel's depth.
         depth_pre = raster_depth(binned.counts, binned.offs, binned.stream,
-                                 nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)[:H, :W]
+                                 nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, y0=y_offset)[:H, :W]
     if L and not ik:
         tl = cull_lights_to_tiles(depth_pre, li, cfg, view_proj, tile=(TH, TW),
-                                  max_per_tile=min(L, cfg.max_live_lights_per_tile), inv_vp=inv_vp)
+                                  max_per_tile=min(L, cfg.max_live_lights_per_tile), inv_vp=inv_vp,
+                                  **rows)
         light_ids = pad_light_ids_to_chunk(tl.indices.reshape(nty * ntx, -1))
         light_counts = tl.counts.reshape(-1)
         overflow = overflow + tl.overflow
@@ -437,7 +456,7 @@ def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool =
         overflow = overflow + s_overflow
         if not split:
             vis, v_overflow = shadow_visibility(depth_pre, view_proj, sd, lvp, cfg,
-                                                return_overflow=True, inv_vp=inv_vp)
+                                                return_overflow=True, inv_vp=inv_vp, **rows)
             overflow = overflow + v_overflow
             vis = F.pad(vis, (0, ntx * TW - W, 0, nty * TH - H), value=1.0)
     out, tile_overflow = fused_tiles(
@@ -445,11 +464,14 @@ def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool =
         nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, n_lights=L,
         ik_slots=live_light_slots(cfg, L), gamma=cfg.gamma,
         bump=(cfg.bump_strength, cfg.bump_frequency) if cfg.normal_mapping else None,
-        hdr_out=cfg.bloom or split, aux=split,
+        hdr_out=cfg.bloom or split or band, aux=split,
         light_ids=light_ids, light_counts=light_counts, vis=vis,
     )
     overflow = overflow + tile_overflow.sum().to(torch.int32)
     color = out[0:3]
+    if band:
+        hdr = color[:, :H, :W].permute(1, 2, 0)
+        return (hdr, overflow) if return_overflow else hdr
     if split:
         vis, v_overflow = split_visibility(out, view_proj, sd, lvp, cfg, uniforms, inv_vp)
         overflow = overflow + v_overflow

@@ -21,6 +21,10 @@ The counterpart of d3d12_deferred_renderer_tpu/ops/lighting.py.
   the plain path (cfg.use_pallas off); the kernel path is
   ops/lighting_cuda.py.
 
+``y_offset`` / ``full_height`` (the screen-row band path) take the rows of
+a band of a taller frame: pixel row y of the band is row y_offset + y of
+the frame, and NDC y comes from the frame's height.
+
 Sums of three or four terms are written in one fixed order; the results
 agree with the JAX package to float32 rounding (tests/test_torch_lighting.py
 states the tolerances).
@@ -77,14 +81,16 @@ def _unproject(x, y, z, inv_vp):
 
 def reconstruct_world_positions(
     depth: torch.Tensor, view_proj: torch.Tensor, cfg: RendererConfig,
-    inv_vp: Optional[torch.Tensor] = None,
+    inv_vp: Optional[torch.Tensor] = None, y_offset: int = 0, full_height: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-pixel world position [H, W, 3] from NDC depth: pixel centers at
-    +0.5, y flipped, z the stored depth (the viewport transform inverted)."""
+    +0.5, y flipped, z the stored depth (the viewport transform inverted);
+    rows y_offset.. of a frame full_height rows high (H by default)."""
     H, W = depth.shape
+    FH = full_height or H
     dev = depth.device
     xs = (torch.arange(W, dtype=F32, device=dev) + 0.5) * (2.0 / W) - 1.0
-    ys = 1.0 - (torch.arange(H, dtype=F32, device=dev) + 0.5) * (2.0 / H)
+    ys = 1.0 - ((y_offset + torch.arange(H, dtype=F32, device=dev)) + 0.5) * (2.0 / FH)
     if inv_vp is None:
         inv_vp = inverse_view_proj(view_proj)
     return _unproject(xs[None, :], ys[:, None], depth, inv_vp)
@@ -140,8 +146,9 @@ def _light_contrib(world, n, v, d, pos, color, radius, intensity):
     return brdf * color * atten[..., None]
 
 
-def _directional(gb, d, lights, cfg, view_proj, eye, shadow_visibility, inv_vp):
-    world = reconstruct_world_positions(gb.depth, view_proj, cfg, inv_vp)
+def _directional(gb, d, lights, cfg, view_proj, eye, shadow_visibility, inv_vp, y_offset=0,
+                 full_height=None):
+    world = reconstruct_world_positions(gb.depth, view_proj, cfg, inv_vp, y_offset, full_height)
     v = normalize_safe(eye - world)
     ldir = normalize_safe(-lights.direction)
     direct = _ggx_brdf(d.normal, v, ldir, d.albedo, d.metalness, d.roughness)
@@ -185,11 +192,15 @@ class TileLights(NamedTuple):
 def cull_lights_to_tiles(
     depth: torch.Tensor, lights: Lights, cfg: RendererConfig, view_proj: torch.Tensor,
     tile=32, max_per_tile: Optional[int] = None, inv_vp: Optional[torch.Tensor] = None,
+    y_offset: int = 0, full_height: Optional[int] = None,
 ) -> TileLights:
     """Light sphere vs tile world-AABB culling, exact against the covered
     pixels of each tile (see the module docstring).  `tile` is a square size
-    or a (tile_h, tile_w) pair; empty tiles cull every light."""
+    or a (tile_h, tile_w) pair; empty tiles cull every light.  With
+    y_offset / full_height the tiles are those of a band starting at frame
+    row y_offset."""
     H, W = depth.shape
+    FH = full_height or H
     dev = depth.device
     K = max_per_tile or cfg.max_lights_per_tile
     th, tw = (tile, tile) if isinstance(tile, int) else tile
@@ -209,8 +220,8 @@ def cull_lights_to_tiles(
     ay = torch.arange(ty, dtype=F32, device=dev)
     xs0 = ax * tw * (2.0 / W) - 1.0
     xs1 = (ax + 1) * tw * (2.0 / W) - 1.0
-    ys0 = 1.0 - (ay * th) * (2.0 / H)
-    ys1 = 1.0 - ((ay + 1) * th) * (2.0 / H)
+    ys0 = 1.0 - (y_offset + ay * th) * (2.0 / FH)
+    ys1 = 1.0 - (y_offset + (ay + 1) * th) * (2.0 / FH)
     if inv_vp is None:
         inv_vp = inverse_view_proj(view_proj)
     pos = lights.point_position  # [L, 3]
@@ -270,22 +281,26 @@ def shade_pbr_tiled(
     gb: GBuffer, lights: Lights, cfg: RendererConfig, view_proj: torch.Tensor,
     eye: torch.Tensor, tile: int = 32, shadow_visibility: Optional[torch.Tensor] = None,
     return_overflow: bool = False, inv_vp: Optional[torch.Tensor] = None,
+    y_offset: int = 0, full_height: Optional[int] = None,
 ):
     """PBR shading with per-tile light culling -> linear HDR [H, W, 3].
     Equals shade_pbr when no tile's live-light count exceeds
     cfg.max_lights_per_tile; a tile over the cap drops its excess lights and
     counts in the overflow (returned with return_overflow=True).  inv_vp is
-    the frame's inverse view-projection (computed here when None)."""
+    the frame's inverse view-projection (computed here when None); y_offset
+    / full_height shade a band of a taller frame."""
     d = decode_gbuffer(gb, cfg)
     if inv_vp is None:
         inv_vp = inverse_view_proj(view_proj)
-    world, v, radiance = _directional(gb, d, lights, cfg, view_proj, eye, shadow_visibility, inv_vp)
+    world, v, radiance = _directional(gb, d, lights, cfg, view_proj, eye, shadow_visibility, inv_vp,
+                                      y_offset, full_height)
     overflow = torch.zeros((), dtype=torch.int32, device=gb.depth.device)
     if lights.num_point:
         H, W = gb.depth.shape
         ty, tx = -(-H // tile), -(-W // tile)
         Hp, Wp = ty * tile, tx * tile
-        tl = cull_lights_to_tiles(gb.depth, lights, cfg, view_proj, tile, inv_vp=inv_vp)
+        tl = cull_lights_to_tiles(gb.depth, lights, cfg, view_proj, tile, inv_vp=inv_vp,
+                                  y_offset=y_offset, full_height=full_height)
         overflow = tl.overflow
 
         def tiled(a):  # [H, W, C] -> [ty, tx, tile, tile, C], zero-padded border

@@ -24,6 +24,14 @@ its device version, which both kernels include.  ``shade_tiles_reference``
 is the plain version of the kernel (csrc/shade.cu); ``shade_tiles`` is the
 wrapper that runs the kernel on CUDA tensors and the plain version on CPU
 tensors.
+
+Band mode (the screen-row band path): the uniforms' U_Y0 is the planes'
+first pixel row in the frame and U_H the frame's height, so a band's world
+positions, light cull and shading are the full frame's.  A band that is not
+a multiple of tile_h pads its last tile row with background (depth 1): the
+padded rows shade to 0 and are cropped, and the light cull pads them the
+same way (as lighting.cull_lights_to_tiles and the JAX package do), so they
+count toward no overflow that the JAX package does not count.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ U_AMBIENT = 25
 U_W = 26
 U_H = 27
 U_TONEMAP = 28    # 1.0 = reinhard, 0.0 = none
+U_Y0 = 29         # first pixel row of the shaded rows (a band's; 0 for a whole frame)
 U_SIZE = 32
 
 # G-buffer input planes (leading dim of the stacked planes)
@@ -73,22 +82,26 @@ def build_light_table(li: Lights) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _uniform_tail(ambient: float, width: int, height: int, tonemap: float, device) -> torch.Tensor:
-    """Fields U_AMBIENT.. of the uniforms: constant per config, copied to the
-    device once and reused, so that a frame makes no host-to-device copy."""
+def _uniform_tail(ambient: float, width: int, height: int, tonemap: float, device, y0: int = 0) -> torch.Tensor:
+    """Fields U_AMBIENT.. of the uniforms: constant per config (and band),
+    copied to the device once and reused, so that a frame makes no
+    host-to-device copy."""
     t = torch.zeros((U_SIZE - U_AMBIENT,), dtype=F32)
     t[U_AMBIENT - U_AMBIENT] = ambient
     t[U_W - U_AMBIENT] = float(width)
     t[U_H - U_AMBIENT] = float(height)
     t[U_TONEMAP - U_AMBIENT] = tonemap
+    t[U_Y0 - U_AMBIENT] = float(y0)
     return t.to(device)
 
 
-def make_uniforms(eye, lights: Lights, cfg: RendererConfig, inv_vp, width: int, height: int) -> torch.Tensor:
+def make_uniforms(eye, lights: Lights, cfg: RendererConfig, inv_vp, width: int, height: int,
+                  y0: int = 0) -> torch.Tensor:
     """The [32] uniforms of both shading kernels for a width x height frame,
-    built on the device of `inv_vp` from tensors already there."""
+    or for its rows from y0 on (a band), built on the device of `inv_vp`
+    from tensors already there."""
     tail = _uniform_tail(cfg.ambient, width, height,
-                         1.0 if cfg.tonemap == "reinhard" else 0.0, inv_vp.device)
+                         1.0 if cfg.tonemap == "reinhard" else 0.0, inv_vp.device, y0)
     ldir = normalize_safe(-lights.direction)
     return torch.cat([inv_vp.reshape(-1), eye, ldir, lights.color, tail])
 
@@ -236,7 +249,8 @@ def shade_tiles_reference(planes, lights, light_ids, light_counts, uniforms, *,
 
     planes [9 or 10, Hp, Wp] f32 (gb0 rgba, gb1 rgba, depth, optional
     visibility; padding at depth 1), lights [>= 1, 8], light_ids [NT, Lk]
-    int32, light_counts [NT] int32, uniforms [32].  Returns HDR [3, Hp, Wp]."""
+    int32, light_counts [NT] int32, uniforms [32] (the planes' rows start
+    at frame row uniforms[U_Y0]).  Returns HDR [3, Hp, Wp]."""
     p = image_to_tiles(planes, nty, ntx, tile_h, tile_w)
     alb = [torch.pow(torch.clamp(p[P_AR + c], min=0.0), gamma) for c in range(3)]
     d = [p[P_NX + c] * 2.0 - 1.0 for c in range(3)]
@@ -245,7 +259,7 @@ def shade_tiles_reference(planes, lights, light_ids, light_counts, uniforms, *,
     n = [c * inv_dlen for c in d]
     depth = p[P_DEPTH]
     px, py = tile_pixels(nty, ntx, tile_h, tile_w, planes.device)
-    world = world_from_depth(uniforms, px, py, depth)
+    world = world_from_depth(uniforms, px, py + uniforms[U_Y0], depth)
     hdr = shade_pixels_reference(
         uniforms, depth, world, n, alb, p[P_MET], p[P_RGH], lights, light_ids, light_counts,
         vis=p[P_VIS] if planes.shape[0] > P_VIS else None,
@@ -315,13 +329,15 @@ def gbuffer_planes(gb: GBuffer, Hp: int, Wp: int, shadow_visibility=None) -> tor
 def shade_pbr_tiled_kernel(
     gb: GBuffer, lights: Lights, cfg: RendererConfig, view_proj: torch.Tensor, eye: torch.Tensor,
     shadow_visibility: Optional[torch.Tensor] = None, return_overflow: bool = False,
-    inv_vp: Optional[torch.Tensor] = None,
+    inv_vp: Optional[torch.Tensor] = None, y_offset: int = 0, full_height: Optional[int] = None,
 ):
     """Tiled-deferred PBR shading through the lighting kernel's wrapper ->
-    linear HDR [H, W, 3] (the lighting.shade_pbr_tiled contract, inv_vp
-    included), and with return_overflow the int32 count of tiles whose live
-    lights exceeded min(L, cfg.max_live_lights_per_tile)."""
+    linear HDR [H, W, 3] (the lighting.shade_pbr_tiled contract, inv_vp,
+    y_offset and full_height included), and with return_overflow the int32
+    count of tiles whose live lights exceeded min(L,
+    cfg.max_live_lights_per_tile)."""
     H, W = gb.depth.shape
+    FH = full_height or H
     TH, TW = cfg.tile_h, cfg.tile_w
     nty, ntx = -(-H // TH), -(-W // TW)
     NT = nty * ntx
@@ -334,6 +350,7 @@ def shade_pbr_tiled_kernel(
         tl = cull_lights_to_tiles(
             gb.depth, lights, cfg, view_proj, tile=(TH, TW),
             max_per_tile=min(L, cfg.max_live_lights_per_tile), inv_vp=inv_vp,
+            y_offset=y_offset, full_height=full_height,
         )
         ids, counts, overflow = tl.indices.reshape(NT, -1), tl.counts.reshape(NT), tl.overflow
     else:
@@ -341,7 +358,7 @@ def shade_pbr_tiled_kernel(
         counts = torch.zeros((NT,), dtype=torch.int32, device=dev)
         overflow = torch.zeros((), dtype=torch.int32, device=dev)
     hdr = shade_tiles(
-        planes, build_light_table(lights), ids, counts, make_uniforms(eye, lights, cfg, inv_vp, W, H),
+        planes, build_light_table(lights), ids, counts, make_uniforms(eye, lights, cfg, inv_vp, W, FH, y_offset),
         nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, gamma=cfg.gamma,
     )
     hdr = hdr[:, :H, :W].permute(1, 2, 0)

@@ -92,10 +92,12 @@ def perspective_attr(rec, bs, offset, step):
     return a * inv_rw
 
 
-def rasterize_packed(packed: torch.Tensor, height: int, width: int) -> FragmentPlanes:
-    """Rasterize the [T, 32] records over a height x width grid, in order."""
+def rasterize_packed(packed: torch.Tensor, height: int, width: int, y_offset: int = 0) -> FragmentPlanes:
+    """Rasterize the [T, 32] records over a height x width grid, in order:
+    pixel rows y_offset .. y_offset + height - 1 of the frame (a band of a
+    taller frame with y_offset > 0)."""
     dev = packed.device
-    py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    py = ((y_offset + torch.arange(height, dtype=torch.float32, device=dev)) + 0.5)[:, None]
     px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
     py, px = py.expand(height, width).reshape(1, -1), px.expand(height, width).reshape(1, -1)
     n = height * width

@@ -29,6 +29,12 @@ each pixel's winning record, which a last pass evaluates again at the
 pixel, so all 8 planes are bit-equal to the serial walk's, the depth's sign
 included.  The stream variant serves every scene: the port's binning always
 builds the stream.
+
+Band mode (the screen-row band path, parallel/sharded.py): with ``y_offset``
+(the kernels' ``y0``) the tile grid covers rows [y_offset, y_offset +
+band_h) of a taller frame; tile row ty's pixel centres are y_offset + ty *
+tile_h + 0.5 + row, exact in float32 for rows below 2^24, so a band's planes
+are bit-equal to the same rows of the full frame's.
 """
 from __future__ import annotations
 
@@ -58,14 +64,15 @@ class TileFragments(NamedTuple):
     mesh_id: torch.Tensor       # float, -1 where no fragment
 
 
-def tile_pixels(nty: int, ntx: int, tile_h: int, tile_w: int, device):
-    """Pixel-center coordinates (px, py), each [NT, P], of every tile."""
+def tile_pixels(nty: int, ntx: int, tile_h: int, tile_w: int, device, y0: int = 0):
+    """Pixel-center coordinates (px, py), each [NT, P], of every tile of a
+    grid whose first pixel row is y0."""
     i = torch.arange(tile_h * tile_w, device=device)
     row = (i // tile_w).to(F32)
     col = (i % tile_w).to(F32)
     ty = torch.arange(nty, device=device).repeat_interleave(ntx).to(F32)[:, None]
     tx = torch.arange(ntx, device=device).repeat(nty).to(F32)[:, None]
-    py = (ty * tile_h + 0.5) + row[None, :]
+    py = ((ty * tile_h + y0) + 0.5) + row[None, :]
     px = (tx * tile_w + 0.5) + col[None, :]
     return px, py
 
@@ -122,9 +129,10 @@ def raster_tile_pixels(counts, offs, stream, px, py, uv: bool = True,
     return TileFragments(depth=depth, normal=nrm, uv=tex, mesh_id=mid if attrs else None)
 
 
-def raster_tiles_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
-    """Plain version of the tile raster kernel -> planes [8, Hp, Wp] f32."""
-    px, py = tile_pixels(nty, ntx, tile_h, tile_w, stream.device)
+def raster_tiles_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w, y0: int = 0) -> torch.Tensor:
+    """Plain version of the tile raster kernel -> planes [8, Hp, Wp] f32 of
+    the grid whose first pixel row is y0."""
+    px, py = tile_pixels(nty, ntx, tile_h, tile_w, stream.device, y0)
     f = raster_tile_pixels(counts, offs, stream, px, py, uv=True)
     planes = torch.stack([f.depth, *f.normal, *f.uv, f.mesh_id, torch.zeros_like(f.depth)])
     return tiles_to_image(planes, nty, ntx, tile_h, tile_w)
@@ -137,7 +145,7 @@ def raster_tiles_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) ->
 TILE_RECORDS_PER_BLOCK = 32
 
 
-def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
+def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w, y0: int = 0,
                  records_per_block: int = TILE_RECORDS_PER_BLOCK) -> torch.Tensor:
     """Tile raster: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors (see raster_tiles_reference for the contract).
@@ -145,7 +153,7 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
     the planes do not depend on it."""
     if stream.device.type == "cpu":
         return raster_tiles_reference(counts, offs, stream, nty=nty, ntx=ntx,
-                                      tile_h=tile_h, tile_w=tile_w)
+                                      tile_h=tile_h, tile_w=tile_w, y0=y0)
     from ..utils import cuda_build
 
     NT = nty * ntx
@@ -157,6 +165,7 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
     )
     if tile_h * tile_w > 1024:
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's 1024")
+    _check_band_rows(y0, nty * tile_h)
     if records_per_block < 1:
         raise ValueError(f"records_per_block must be positive, got {records_per_block}")
     Hp, Wp = nty * tile_h, ntx * tile_w
@@ -164,7 +173,7 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
     keys = torch.empty((Hp * Wp,), dtype=torch.int64, device=stream.device)  # the visibility buffer
     err = cuda_build.library().raster_tiles_launch(
         counts.data_ptr(), offs.data_ptr(), stream.data_ptr(), stream.shape[0], nty, ntx, tile_h, tile_w,
-        records_per_block, keys.data_ptr(), planes.data_ptr(),
+        y0, records_per_block, keys.data_ptr(), planes.data_ptr(),
         torch.cuda.current_stream(stream.device).cuda_stream,
     )
     cuda_build.raise_on_error(err, "raster_tiles")
@@ -173,6 +182,13 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
 
 
 raster_tiles.launches = 0
+
+
+def _check_band_rows(y0: int, rows: int) -> None:
+    """The kernels take the band's first row as an int and compute pixel
+    centres in float32: every row must stay below 2^24 to be exact."""
+    if y0 < 0 or y0 + rows > 1 << 24:
+        raise ValueError(f"band rows [{y0}, {y0 + rows}) outside [0, 2^24)")
 
 
 # The depth-only kernel runs 256 threads of up to 8 pixels a tile: the
@@ -186,15 +202,15 @@ DEPTH_MAX_TILE_PIXELS = 2048
 DEPTH_RECORDS_PER_BLOCK = 64
 
 
-def raster_depth_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w) -> torch.Tensor:
+def raster_depth_reference(counts, offs, stream, *, nty, ntx, tile_h, tile_w, y0: int = 0) -> torch.Tensor:
     """Plain version of the depth-only tile raster kernel -> depth [Hp, Wp]
     f32, cleared to 1: the depth plane of raster_tiles_reference."""
-    px, py = tile_pixels(nty, ntx, tile_h, tile_w, stream.device)
+    px, py = tile_pixels(nty, ntx, tile_h, tile_w, stream.device, y0)
     f = raster_tile_pixels(counts, offs, stream, px, py, attrs=False)
     return tiles_to_image(f.depth, nty, ntx, tile_h, tile_w)
 
 
-def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
+def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w, y0: int = 0,
                  records_per_block: int = DEPTH_RECORDS_PER_BLOCK) -> torch.Tensor:
     """Depth-only tile raster: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (see raster_depth_reference for the contract).
@@ -202,7 +218,7 @@ def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
     the depth does not depend on it."""
     if stream.device.type == "cpu":
         return raster_depth_reference(counts, offs, stream, nty=nty, ntx=ntx,
-                                      tile_h=tile_h, tile_w=tile_w)
+                                      tile_h=tile_h, tile_w=tile_w, y0=y0)
     from ..utils import cuda_build
 
     NT = nty * ntx
@@ -214,12 +230,13 @@ def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
     )
     if tile_h * tile_w > DEPTH_MAX_TILE_PIXELS:
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's {DEPTH_MAX_TILE_PIXELS}")
+    _check_band_rows(y0, nty * tile_h)
     if records_per_block < 1:
         raise ValueError(f"records_per_block must be positive, got {records_per_block}")
     depth = torch.empty((nty * tile_h, ntx * tile_w), dtype=F32, device=stream.device)
     err = cuda_build.library().raster_depth_launch(
         counts.data_ptr(), offs.data_ptr(), stream.data_ptr(), stream.shape[0], nty, ntx, tile_h,
-        tile_w, records_per_block, depth.data_ptr(), torch.cuda.current_stream(stream.device).cuda_stream,
+        tile_w, y0, records_per_block, depth.data_ptr(), torch.cuda.current_stream(stream.device).cuda_stream,
     )
     cuda_build.raise_on_error(err, "raster_depth")
     raster_depth.launches += 1
@@ -229,17 +246,20 @@ def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w,
 raster_depth.launches = 0
 
 
-def rasterize_depth(packed, aabb, valid, cfg: RendererConfig, return_overflow: bool = False):
+def rasterize_depth(packed, aabb, valid, cfg: RendererConfig, return_overflow: bool = False,
+                    band_h: int | None = None, y_offset: int = 0):
     """Bin the [T, 32] records onto the cfg tile grid and rasterize depth
     only -> depth [H, W] (cleared to 1; bit-equal to rasterize_binned's
     depth), and with return_overflow the binning's int32 overflow count.
     The frame size comes from cfg: the shadow map passes a config of its
-    own size (shadows.shadow_bin_config)."""
+    own size (shadows.shadow_bin_config).  With band_h, rows [y_offset,
+    y_offset + band_h) of the frame only -> depth [band_h, W]."""
+    H = band_h or cfg.height
     TH, TW = cfg.tile_h, cfg.tile_w
-    nty, ntx = -(-cfg.height // TH), -(-cfg.width // TW)
-    binned = bin_triangles(packed, aabb, valid, cfg)
+    nty, ntx = -(-H // TH), -(-cfg.width // TW)
+    binned = bin_triangles(packed, aabb, valid, cfg, band_h, y_offset)
     depth = raster_depth(binned.counts, binned.offs, binned.stream,
-                         nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)[: cfg.height, : cfg.width]
+                         nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, y0=y_offset)[:H, : cfg.width]
     return (depth, binned.overflow) if return_overflow else depth
 
 
@@ -254,15 +274,19 @@ def fragments_from_planes(planes: torch.Tensor, height: int, width: int) -> Frag
     )
 
 
-def rasterize_binned(packed, aabb, valid, cfg: RendererConfig, return_overflow: bool = False):
+def rasterize_binned(packed, aabb, valid, cfg: RendererConfig, return_overflow: bool = False,
+                     band_h: int | None = None, y_offset: int = 0):
     """Bin the [T, 32] records onto the cfg tile grid and rasterize every
     tile -> FragmentPlanes (the raster_ref.rasterize_packed contract), and
     with return_overflow the binning's int32 overflow count (tiles that lost
-    triangles at a capacity cap)."""
+    triangles at a capacity cap).  With band_h, rows [y_offset, y_offset +
+    band_h) of the frame only (any band height: a partial last tile row is
+    rasterized and cropped)."""
+    H = band_h or cfg.height
     TH, TW = cfg.tile_h, cfg.tile_w
-    nty, ntx = -(-cfg.height // TH), -(-cfg.width // TW)
-    binned = bin_triangles(packed, aabb, valid, cfg)
+    nty, ntx = -(-H // TH), -(-cfg.width // TW)
+    binned = bin_triangles(packed, aabb, valid, cfg, band_h, y_offset)
     planes = raster_tiles(binned.counts, binned.offs, binned.stream,
-                          nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)
-    frags = fragments_from_planes(planes, cfg.height, cfg.width)
+                          nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, y0=y_offset)
+    frags = fragments_from_planes(planes, H, cfg.width)
     return (frags, binned.overflow) if return_overflow else frags

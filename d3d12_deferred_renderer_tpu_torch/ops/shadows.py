@@ -170,7 +170,8 @@ def _pcf(shadow_depth, nx, ny, z, bias, downsample: int = 1):
 def shadow_visibility(
     depth: torch.Tensor, view_proj: torch.Tensor, shadow_depth: torch.Tensor,
     light_vp: torch.Tensor, cfg: RendererConfig, bias: float = 2e-3,
-    return_overflow: bool = False, lit_mask=None, inv_vp=None,
+    return_overflow: bool = False, lit_mask=None, inv_vp=None, y_offset: int = 0,
+    full_height=None,
 ):
     """Per-pixel visibility [H, W] in [0, 1] of the directional light:
     bilinear-weighted PCF (the comparison sampler: compare at each footprint
@@ -184,20 +185,25 @@ def shadow_visibility(
     lit covered pixel are sampled, under ``cfg.shadow_tiles_cap_lit``.
     Covered tiles beyond the cap are not sampled and count in the overflow
     (returned with return_overflow).  ``inv_vp`` is the frame's inverse
-    view-projection (computed here when None)."""
+    view-projection (computed here when None).  ``y_offset`` /
+    ``full_height`` evaluate a band of a taller frame (the screen-row band
+    path): dense, as in the JAX package, so that its overflow counts match
+    (the sparse path is for a whole frame only)."""
     H, W = depth.shape
+    FH = full_height or H
     dev = depth.device
     if inv_vp is None:
         inv_vp = inverse_view_proj(view_proj)
     M = xmath.matmul4_fma(inv_vp, light_vp)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     d = max(1, cfg.shadow_vis_downsample)
-    if cfg.shadow_tiles_cap != 0 and d == 1 and H % 8 == 0 and W % 128 == 0:
+    whole_frame = full_height is None and y_offset == 0
+    if cfg.shadow_tiles_cap != 0 and d == 1 and whole_frame and H % 8 == 0 and W % 128 == 0:
         vis, overflow = _shadow_visibility_sparse(depth, shadow_depth, M, cfg, bias, lit_mask)
         return (vis, overflow) if return_overflow else vis
 
     xs = (torch.arange(W, dtype=F32, device=dev) + 0.5) * (2.0 / W) - 1.0
-    ys = 1.0 - (torch.arange(H, dtype=F32, device=dev) + 0.5) * (2.0 / H)
+    ys = 1.0 - ((y_offset + torch.arange(H, dtype=F32, device=dev)) + 0.5) * (2.0 / FH)
     nx, ny, z = _light_ndc(xs[None, :], ys[:, None], depth, M)
     vis = _pcf(shadow_depth, nx, ny, z, bias, d)
     return (vis, zero) if return_overflow else vis

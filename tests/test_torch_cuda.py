@@ -750,3 +750,140 @@ def test_overflow_warning_on_the_card(capsys):
     tp.render(state, cfg)
     assert capsys.readouterr().out == tp.frame.OVERFLOW_WARNING.format(n=overflow) + "\n"
     assert len(tp.frame._pending_overflow) == 1
+
+
+# The screen-row band path: bands of a 640 x 360 frame, 3 of 120 rows
+# (whole 8-row tiles) and 4 of 90 (a padded last tile row).
+BAND_CASES = [(120, 120), (90, 90)]
+
+
+def _u8_frame(hdr, gamma):
+    """Linear HDR [3, h, w] -> u8 [h, w, 3] as int32 (Reinhard, gamma)."""
+    x = torch.pow(torch.clamp(hdr / (1.0 + hdr), min=0.0), 1.0 / gamma)
+    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int32).permute(1, 2, 0)
+
+
+def _close_u8(a, b, frac):
+    d = (a - b).abs().amax(-1)
+    return int(d.max()) <= 1 and float((d > 0).double().mean()) < frac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y0,bh", BAND_CASES, ids=["120_rows", "90_rows_padded"])
+def test_band_kernels_match_plain_and_full_rows(y0, bh):
+    """K6, K3, K7 and (on whole tiles) K2 on a band: against their plain
+    versions on the same band inputs (K6 planes and K7 HDR bit-equal as
+    int32, K3 torch.equal, K2 within 1 u8 on < 1% and equal tile overflow)
+    and against the same rows of the full-frame kernel (bit-equal as int32
+    on whole tiles; K6 and K3 on the padded band too; K7 there within 1 u8
+    on < 1%: its band-local tiles cull their own lights)."""
+    from d3d12_deferred_renderer_tpu_torch.ops.gbuffer import encode_gbuffer
+
+    dev = _cuda()
+    i32 = torch.int32
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=360, fused=False)
+    H, W = cfg.height, cfg.width
+    state = _scene(cfg, dev)
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    li, L = state.lights, state.lights.num_point
+    lt = fused.build_light_table(li)
+    mats = fused.build_material_table(state.materials, cfg.gamma)
+
+    def run(band_h, off):
+        g = dict(nty=-(-band_h // 8), ntx=5, tile_h=8, tile_w=128)
+        NT = g["nty"] * 5
+        b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg, band_h, off)
+        bargs = (b.counts, b.offs, b.stream)
+        planes = raster_tiles.raster_tiles(*bargs, **g, y0=off)
+        depth = raster_tiles.raster_depth(*bargs, **g, y0=off)
+        gb = encode_gbuffer(raster_tiles.fragments_from_planes(planes, band_h, W), state.materials, cfg)
+        tl = lighting.cull_lights_to_tiles(gb.depth, li, cfg, view_proj, tile=(8, 128), max_per_tile=L,
+                                           inv_vp=inv_vp, y_offset=off, full_height=H)
+        sargs = (lighting_cuda.gbuffer_planes(gb, g["nty"] * 8, W), lt, tl.indices.reshape(NT, -1),
+                 tl.counts.reshape(NT), lighting_cuda.make_uniforms(state.camera.eye, li, cfg, inv_vp, W, H, off))
+        hdr = lighting_cuda.shade_tiles(*sargs, **g, gamma=cfg.gamma)
+        k2 = ((*bargs, lt, mats, sargs[4]),
+              dict(g, n_lights=L, ik_slots=fused.live_light_slots(cfg, L), gamma=cfg.gamma, hdr_out=True))
+        color, tovf = fused.fused_tiles(*k2[0], **k2[1])
+        return dict(g=g, bargs=bargs, planes=planes, depth=depth, sargs=sargs, hdr=hdr, k2=k2, color=color,
+                    tovf=tovf)
+
+    full, band = run(H, 0), run(bh, y0)
+    g, bargs = band["g"], band["bargs"]
+    pplanes = raster_tiles.raster_tiles_reference(*bargs, **g, y0=y0)
+    pdepth = raster_tiles.raster_depth_reference(*bargs, **g, y0=y0)
+    phdr = lighting_cuda.shade_tiles_reference(*band["sargs"], **g, gamma=cfg.gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(band["planes"].view(i32), pplanes.view(i32))
+    assert torch.equal(band["planes"][:, :bh].view(i32), full["planes"][:, y0 : y0 + bh].view(i32))
+    assert torch.equal(band["depth"], pdepth)
+    assert torch.equal(band["depth"][:bh].view(i32), full["depth"][y0 : y0 + bh].view(i32))
+    assert float((band["planes"][raster_tiles.PLANE_MID, :bh] >= 0).double().mean()) > 0.02
+    assert torch.equal(band["hdr"].view(i32), phdr.view(i32))
+    rows = full["hdr"][:, y0 : y0 + bh]
+    if bh % 8 == 0:
+        assert torch.equal(band["hdr"].view(i32), rows.view(i32))
+        pcolor, ptovf = fused.fused_tiles_reference(*band["k2"][0], **band["k2"][1])
+        torch.cuda.synchronize()
+        assert torch.equal(band["tovf"], ptovf)
+        assert _close_u8(_u8_frame(band["color"], cfg.gamma), _u8_frame(pcolor, cfg.gamma), 0.01)
+        assert torch.equal(band["color"].view(i32), full["color"][:, y0 : y0 + bh].view(i32))
+    else:
+        assert _close_u8(_u8_frame(band["hdr"][:, :bh], cfg.gamma), _u8_frame(rows, cfg.gamma), 0.01)
+
+
+def _one_rank_group():
+    import torch.distributed as dist
+
+    from d3d12_deferred_renderer_tpu_torch.parallel import make_rows_group
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import free_port
+
+    make_rows_group(0, 1, f"tcp://localhost:{free_port()}", torch.device("cuda", 0), timeout_s=60.0)
+    return dist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["staged", "fused"])
+def test_render_sharded_one_rank_on_the_card(config):
+    """render_sharded on a one-rank group (gloo: ranks share the card) is
+    the single-device frame: bit for bit on the staged path (the same
+    kernels and post), within 1 u8 on < 0.2% fused (the band's post runs
+    after the kernel, the whole frame's tonemap inside it)."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import render_sharded
+
+    dev = _cuda()
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=360, fused=config == "fused")
+    state = _scene(cfg, dev)
+    dist = _one_rank_group()
+    try:
+        frame, stats = render_sharded(state, cfg, return_stats=True)
+    finally:
+        dist.destroy_process_group()
+    single, sstats = tp.render_stats(state, cfg)
+    assert int(stats["overflow"]) == int(sstats["overflow"]) == 0
+    if config == "staged":
+        assert torch.equal(frame, single)
+    else:
+        assert _close_u8(frame.to(torch.int32), single.to(torch.int32), 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fused", "staged_unaligned"])
+def test_render_sharded_two_ranks_share_the_card(config):
+    """Two band ranks on one card (gloo, spawned processes with a deadline):
+    the assembled frame within 1 u8 on < 0.2% of the single-device frame,
+    overflow 0 summed; 360 rows in 2 bands of 180 (no multiple of 8) take
+    the staged branch."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import run_bands
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import sharded_frames
+
+    dev = _cuda()
+    height = 368 if config == "fused" else 360
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=height, fused=True)
+    state = _scene(cfg, dev)
+    ranks = run_bands(2, sharded_frames, ([(tp.arrays_from_state(state), cfg)],), device="cuda", timeout_s=300.0)
+    single, sstats = tp.render_stats(state, cfg)
+    for (frame, overflow), in ranks:
+        assert overflow == int(sstats["overflow"]) == 0
+        assert _close_u8(torch.from_numpy(frame).to(dev, torch.int32), single.to(torch.int32), 2e-3)

@@ -153,7 +153,9 @@ def test_port_imports_no_jax():
         "d3d12_deferred_renderer_tpu_torch.ops.bump, "
         "d3d12_deferred_renderer_tpu_torch.ops.scatter, "
         "d3d12_deferred_renderer_tpu_torch.calibrate, "
-        "d3d12_deferred_renderer_tpu_torch.models.obj; "
+        "d3d12_deferred_renderer_tpu_torch.models.obj, "
+        "d3d12_deferred_renderer_tpu_torch.parallel, "
+        "d3d12_deferred_renderer_tpu_torch.parallel.launch; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'d3d12_deferred_renderer_tpu.'))]; "
         "assert not bad and 'd3d12_deferred_renderer_tpu' not in sys.modules, bad"
