@@ -37,8 +37,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              256 records a work item, and on the display grid equal to the
              tile raster kernel's depth plane; timed as k2 on both grids.
 8. k8      — the bump kernel against its plain version on the flagship
-             frame's fragments: normals within 1e-6 (both round every
-             operation once).
+             frame's raster planes (K6's output, updated in place): every
+             plane bit-equal as int32; the exhaustive check of the kernels'
+             float32 rsqrt against the plain versions' float64 one over
+             all 2^31 non-negative bit patterns (0 mismatches); ptxas's
+             registers and stack frame; ms, device ms, the bound.
 9. k2v     — the fused tile kernel's config-4 variant (bump, linear HDR, the
              split's aux planes) at 1920x1080: depth and mesh-id planes
              bit-equal to the tile raster kernel's on the same binned input,
@@ -97,25 +100,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              index_copy_'s ms, the bound, and torch.sort's ns/key at the
              same count.
 
-19. bands — the screen-row band path.  bands_kernels: K6, K3, K7 and K2
-             on the middle band of 3 (rows 360-719) and K6, K3 and K7 on the
-             second band of 4 (rows 270-539: a padded last tile row) of the
-             flagship frame, against their plain versions on the same band
-             inputs (K6 and K7 bit-equal, K3 torch.equal, K2 within 1 u8)
-             and against the same rows of the full frame's kernel (bit-equal
-             on whole tiles; K7 on the 270-row band within 1 u8): device ms
-             band beside full frame.  bands: parallel.render_sharded in 3
-             spawned ranks sharing the card through a gloo group (the fused
-             flagship, the fused list-fed frame, the staged flagship, the
-             unsplit config 4 with FXAA) and in 4 (the fused flagship config
-             on 270-row bands, which takes the staged branch; config 1 on
-             180-row bands): each rank's launches, the summed overflow 0 at
-             every 4th step of the 64-step orbit, the assembled frame against
-             the single-device frame of the same state (exact for config 1,
-             else within 1 u8 on < 0.2% of pixels), each rank's ms/frame.
+19. bands — the screen-row band path.  bands_kernels: K6, K3, K7, K2 and
+             K8 on the middle band of 3 (rows 360-719) and K6, K3 and K7 on
+             the second band of 4 (rows 270-539: a padded last tile row) of
+             the flagship frame, against their plain versions on the same
+             band inputs (K6, K7 and K8 bit-equal, K3 torch.equal, K2 within
+             1 u8) and against the same rows of the full frame's kernel
+             (bit-equal on whole tiles; K7 on the 270-row band within 1 u8):
+             device ms band beside full frame.  bands: parallel.render_sharded
+             in 3 spawned ranks sharing the card through a gloo group (the
+             fused flagship, the fused list-fed frame, the staged flagship,
+             the unsplit config 4 with FXAA, the staged config 4 with K8 on
+             each band) and in 4 (the fused flagship config on 270-row
+             bands, which takes the staged branch; config 1 on 180-row
+             bands): each rank's launches, the summed overflow 0 at every
+             4th step of the 64-step orbit, the assembled frame against the
+             single-device frame of the same state (exact for config 1, else
+             within 1 u8 on < 0.2% of pixels), each rank's ms/frame.
 
 Then the card's name and power limit (nvidia-smi), the kernels line (with
-the band entries k6_band, k3_band, k7_band, k2_band), and the last line
+the band entries k6_band, k3_band, k7_band, k2_band, k8_band), and the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
 and prints no result.  Needs one card; imports no JAX.  Each main path runs
 with every launch count set to 0 just before it and read just after.
@@ -123,15 +127,25 @@ with every launch count set to 0 just before it and read just after.
     python3 chip_smoke.py --time-staged DIR
 
 runs no phase: it times the setup kernels, K1 on the flagship's camera pass
-and K4 on config 4's light-view pass (1024^2), and the staged frame's two
-per-pixel kernels, K6 and K7 (K7 also with its light-heaviest tile's count
-set to 0 and with no point light), from CUDA-graph replays on the staged
+and K4 on config 4's light-view pass (1024^2), and the staged frame's
+per-pixel kernels, K6, K7 (also with its light-heaviest tile's count set
+to 0 and with no point light) and K8, from CUDA-graph replays on the staged
 flagship's inputs, with the port imported from the checkout at DIR, and
-prints one JSON line (with the setup kernels' ptxas lines when this process
-built them) and the card's name and power limit.  It passes only the
-arguments every version of the wrappers takes, so that one call can time
-the parent commit (unpacked with `git archive` into a directory .gitignore
-lists) and this tree in turns on the same card.
+prints one JSON line (with the setup kernels' and K8's ptxas lines when this
+process built them) and the card's name and power limit.  It passes only
+the arguments every version of the wrappers takes (K8 by either of its
+signatures, bump_call), so that one call can time the parent commit
+(unpacked with `git archive` into a directory .gitignore lists) and this
+tree in turns on the same card.
+
+    python3 chip_smoke.py --time-bump DIR
+
+runs no phase: it builds copies of the csrc/bump.cu of the checkout at DIR
+(BUMP_ABLATIONS: as it is; with float32 intrinsics for sin and rsqrt,
+wrong bits, timing only; the staging alone, without the bump's arithmetic),
+checks the first bit-equal to its plain version on the staged config-4
+flagship's raster planes, and prints each one's graph-replayed device ms
+(the copies in turns, 3 passes) and ptxas lines: where K8's time goes.
 
     python3 chip_smoke.py --time-setup-blocks
 
@@ -311,17 +325,24 @@ def setup_equal(got, ref) -> bool:
             and torch.equal(got.aabb.view(i32), ref.aabb.view(i32)) and torch.equal(got.valid, ref.valid))
 
 
-def setup_ptxas(log: str) -> dict:
-    """ptxas's lines (registers; stack frame and spills) for the setup
-    kernel's two instantiations in an nvcc log: "K1" (setup_kernel<true>)
-    and "K4" (setup_kernel<false>).  Empty for a log without a build."""
-    out, key = {}, None
+def ptxas_lines(log: str, entry: str) -> list:
+    """ptxas's lines (registers; stack frame and spills) in an nvcc log for
+    the kernels whose mangled name holds `entry`.  Empty for a log without
+    a build."""
+    out, mine = [], False
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            key = "K1" if "setup_kernelILb1E" in ln else ("K4" if "setup_kernelILb0E" in ln else None)
-        elif key and ("registers" in ln or "stack frame" in ln):
-            out.setdefault(key, []).append(ln.strip())
+            mine = entry in ln
+        elif mine and ("registers" in ln or "stack frame" in ln):
+            out.append(ln.strip())
     return out
+
+
+def setup_ptxas(log: str) -> dict:
+    """ptxas's lines for the setup kernel's two instantiations: "K1"
+    (setup_kernel<true>) and "K4" (setup_kernel<false>)."""
+    out = {"K1": ptxas_lines(log, "setup_kernelILb1E"), "K4": ptxas_lines(log, "setup_kernelILb0E")}
+    return {k: v for k, v in out.items() if v}
 
 
 SETUP_THREADS_DECL = re.compile(r"constexpr int kThreads = (\d+);")
@@ -441,13 +462,10 @@ def staged_plain_chain(state, cfg, shade: bool = True):
     binned = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
     planes = raster_tiles_reference(binned.counts, binned.offs, binned.stream,
                                     nty=nty, ntx=ntx, tile_h=TH, tile_w=TW)
-    frags = fragments_from_planes(planes, H, W)
     if cfg.normal_mapping:
-        n = bump.bump_tiles_reference(bump.bump_planes(frags, nty * TH, ntx * TW),
-                                      bump.bump_uniforms(inv_vp, W, H), nty=nty, ntx=ntx, tile_h=TH,
-                                      tile_w=TW, strength=cfg.bump_strength, freq=cfg.bump_frequency)
-        frags = frags._replace(normal=n[:, :H, :W].permute(1, 2, 0))
-    gb = encode_gbuffer(frags, state.materials, cfg)
+        bump.bump_tiles_reference(planes, inv_vp, width=W, height=H, tile_h=TH, tile_w=TW,
+                                  strength=cfg.bump_strength, freq=cfg.bump_frequency)
+    gb = encode_gbuffer(fragments_from_planes(planes, H, W), state.materials, cfg)
     overflow, tl = binned.overflow, None
     if cfg.shading == "lambert":
         color = lighting.shade_lambert(gb, state.lights, cfg) if shade else None
@@ -617,6 +635,7 @@ BAND_PATHS_3 = (
     ("fused_listfed", dict(fused=True, inkernel_light_cull=False), "pbr"),
     ("staged_flagship", dict(fused=False), "pbr"),
     ("config4_fused_unsplit", dict(fused=True, fxaa=True, **CONFIG4_UNSPLIT_FLAGS), "pbr"),
+    ("config4_staged", dict(fused=False, **CONFIG4_FLAGS), "pbr"),
 )
 # 270-row bands are not whole 8-row tiles: the fused config takes the
 # staged branch.  Config 1 (1280x720, Lambert) in bands of 180 rows.
@@ -708,6 +727,8 @@ BAND_PATH_LAUNCHES = {
     "staged_flagship": {"setup_triangles": 1, "raster_tiles": 1, "shade_tiles": 1},
     "config4_fused_unsplit": {"setup_triangles": 1, "setup_depth_triangles": 1, "raster_depth": 2,
                               "fused_tiles": 1},
+    "config4_staged": {"setup_triangles": 1, "raster_tiles": 1, "bump_tiles": 1, "setup_depth_triangles": 1,
+                       "raster_depth": 1, "shade_tiles": 1},
     "staged_flagship_270": {"setup_triangles": 1, "raster_tiles": 1, "shade_tiles": 1},
     "config1_180": {"setup_triangles": 1, "raster_tiles": 1},
 }
@@ -1085,38 +1106,49 @@ def main() -> int:
     )
     del sdepth, psdepth, ddepth
 
-    # ---- 8. K8: the bump on the flagship frame's fragments ----
+    # ---- 8. K8: the bump on the flagship frame's raster planes, in place ----
     inv_vp = lighting.inverse_view_proj(view_proj)
-    bplanes = bump.bump_planes(raster_tiles.fragments_from_planes(dplanes, H, W), nty * TH, ntx * TW)
-    bargs = (bplanes, bump.bump_uniforms(inv_vp, W, H))
-    bkw = dict(nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, strength=cfg4.bump_strength, freq=cfg4.bump_frequency)
-    bn = bump.bump_tiles(*bargs, **bkw)
-    pbn = bump.bump_tiles_reference(*bargs, **bkw)
+    bkw = dict(width=W, height=H, tile_h=TH, tile_w=TW, strength=cfg4.bump_strength, freq=cfg4.bump_frequency)
+    bn = bump.bump_tiles(dplanes.clone(), inv_vp, **bkw)
+    pbn = bump.bump_tiles_reference(dplanes.clone(), inv_vp, **bkw)
     torch.cuda.synchronize()
+    # Every plane bit for bit (int32 views): the normals, and the other
+    # planes untouched (1920 x 1080 is whole 8 x 128 tiles: no padding).
+    off8 = (bn.view(torch.int32) != pbn.view(torch.int32)).sum((1, 2)).tolist()
+    check(not any(off8), f"K8 planes not bit-equal to the plain version's: elements off per plane {off8}")
     k8_err = float((bn - pbn).abs().max())
-    check(k8_err <= 1e-6, f"K8 normals off by {k8_err} (bound 1e-6)")
-    moved = float((bn != bplanes[1:4]).any(0).double().mean())
+    moved = float((bn[1:4] != dplanes[1:4]).any(0).double().mean())
     check(moved > 0.1, f"K8 perturbed only {moved} of the pixels")
-    k8_ms = cuda_ms(lambda: bump.bump_tiles(*bargs, **bkw), 100)
-    k8_plain_ms = cuda_ms(lambda: bump.bump_tiles_reference(*bargs, **bkw), 5)
-    k8_dev_ms = graph_ms(lambda: bump.bump_tiles(*bargs, **bkw), 50)
-    # The bytes the function needs: the mesh id and the normal at every
-    # pixel (a background or out-of-frame pixel keeps its normal), depth, u
-    # and v at covered in-frame pixels only (padding has mesh id -1), the
-    # normals out and the uniforms.
-    plane8 = bplanes[bump.B_MID].numel()
-    cov8 = int((bplanes[bump.B_MID] >= 0).sum())
-    k8_bytes = 4 * (4 * plane8 + 3 * cov8 + bn.numel() + 32)
+    t0 = time.perf_counter()
+    rsqrt_bad = bump.rsqrt_mismatches(dev)
+    rsqrt_s = time.perf_counter() - t0
+    check(rsqrt_bad == 0, f"the kernels' rsqrt differs from xmath.rsqrtf on {rsqrt_bad} float32 inputs")
+    work = dplanes.clone()
+    k8_ms = cuda_ms(lambda: bump.bump_tiles(work, inv_vp, **bkw), 100)
+    k8_plain_ms = cuda_ms(lambda: bump.bump_tiles_reference(work, inv_vp, **bkw), 5)
+    k8_dev_ms = graph_ms(lambda: bump.bump_tiles(work, inv_vp, **bkw), 50)
+    # The bytes the function needs: the mesh id at every pixel (a
+    # background or out-of-frame pixel keeps its normal, in place), and at
+    # covered pixels depth, u, v and the normal in and out; the inverse.
+    # An out-of-place bump (a separate normals output) would also read the
+    # normal at every pixel and write all three planes
+    # (bound_bytes_out_of_place).
+    plane8 = dplanes[raster_tiles.PLANE_MID].numel()
+    cov8 = int((dplanes[raster_tiles.PLANE_MID] >= 0).sum())
+    k8_bytes = 4 * (plane8 + 9 * cov8 + 16)
     k8_bound = bound(k8_bytes, cov8 * BUMP_OPS_PER_PIXEL)
-    emit({"phase": "k8", "ok": True, "max_abs_err": k8_err,
-          "bit_equal_frac": float((bn == pbn).double().mean()), "perturbed_frac": moved,
-          "covered_pixels": cov8, "ms": k8_ms, "device_ms": k8_dev_ms, "plain_ms": k8_plain_ms, **k8_bound})
+    k8_old = bound(4 * (7 * plane8 + 3 * cov8 + 32), cov8 * BUMP_OPS_PER_PIXEL)
+    emit({"phase": "k8", "ok": True, "bit_equal": True, "max_abs_err": k8_err, "perturbed_frac": moved,
+          "covered_pixels": cov8, "rsqrt_check": {"inputs": 2**31, "mismatches": rsqrt_bad, "seconds": rsqrt_s},
+          "ptxas": ptxas_lines(cuda_build.BuildInfo.log, "bump_tile_kernel"),
+          "ms": k8_ms, "device_ms": k8_dev_ms, "plain_ms": k8_plain_ms, **k8_bound,
+          "bound_ms_out_of_place": k8_old["bound_ms"], "bound_bytes_out_of_place": k8_old["bound_bytes"]})
     kernels["bump"] = dict(
         name="bump_tiles", route="cuda", source="d3d12_deferred_renderer_tpu_torch/csrc/bump.cu",
         replaces="d3d12_deferred_renderer_tpu/ops/bump.py:196",
         max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain_ms, **k8_bound, library_ms=None, device_ms=k8_dev_ms,
     )
-    del bplanes, bargs, bn, pbn
+    del bn, pbn, work
 
     # ---- 9. K2's config-4 variant: bump + linear HDR + the split's planes ----
     args, kw, binned = k2_inputs(tp, state, cfg4)
@@ -1558,7 +1590,7 @@ def main() -> int:
              "prepass_bound_ms", "band", "full_frame_device_ms")
     emit({"kernels": [{**{k: kernels[n][k] for k in keys}, **{k: kernels[n][k] for k in extra if k in kernels[n]}}
                       for n in ("setup", "fused", "raster", "shade", "setup_depth", "raster_depth", "bump",
-                                "resolve", "scatter", "k6_band", "k3_band", "k7_band", "k2_band")]})
+                                "resolve", "scatter", "k6_band", "k3_band", "k7_band", "k2_band", "k8_band")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -1567,11 +1599,12 @@ def main() -> int:
 def band_kernel_phase(tp, state, dev, kernels) -> None:
     """The band kernels on the flagship frame (1920x1080): K6 and K3 on the
     middle band of 3 (rows 360-719) and the second band of 4 (rows 270-539,
-    a padded last tile row), K7 on each band's G-buffer, K2 on the band of
-    whole tiles (in-kernel cull; lists + visibility + bump).  Each against
-    its plain version on the same band inputs (K6 planes and K7 HDR bit
-    for bit as int32, K3 torch.equal, K2 within 1 u8 on < 1% of pixels and
-    equal tile overflow) and against the same rows of the full-frame
+    a padded last tile row), K7 on each band's G-buffer, K2 (in-kernel
+    cull; lists + visibility + bump) and K8 (on K6's planes, row offset
+    y0) on the band of whole tiles.  Each against its plain version on the
+    same band inputs (K6 planes, K7 HDR and K8 planes bit for bit as int32,
+    K3 torch.equal, K2 within 1 u8 on < 1% of pixels and equal tile
+    overflow) and against the same rows of the full-frame
     kernel (bit for bit as int32 on the band of whole tiles; K6 and K3 on
     both bands; K7 on the 270-row band within 1 u8 on < 1%: its band-local
     tiles cull their own lights).  Device ms from graph replays, band beside
@@ -1579,7 +1612,7 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
     import torch
     import torch.nn.functional as F
 
-    from d3d12_deferred_renderer_tpu_torch.ops import fused, lighting, lighting_cuda, post, raster_tiles, shadows
+    from d3d12_deferred_renderer_tpu_torch.ops import bump, fused, lighting, lighting_cuda, post, raster_tiles, shadows
     from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
     from d3d12_deferred_renderer_tpu_torch.ops.gbuffer import encode_gbuffer
     from d3d12_deferred_renderer_tpu_torch.ops.transform import setup_frame_triangles
@@ -1639,10 +1672,14 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
     fhdr = lighting_cuda.shade_tiles(*fk7, **skw)
     fk2 = {lists: k2_inputs_band(fb, 0, H, lists) for lists in (False, True)}
     fcolor = {lists: fused.fused_tiles(*a, **k)[0] for lists, (a, k) in fk2.items()}
+    bkw = dict(width=W, height=H, tile_h=TH, tile_w=TW, strength=c4u.bump_strength, freq=c4u.bump_frequency)
+    fbumped = bump.bump_tiles(fplanes.clone(), inv_vp, **bkw)
+    fwork = fplanes.clone()
     full_ms = {"k6": graph_ms(lambda: raster_tiles.raster_tiles(*fbargs, **grid(H)), 20),
                "k3": graph_ms(lambda: raster_tiles.raster_depth(*fbargs, **grid(H)), 20),
                "k7": graph_ms(lambda: lighting_cuda.shade_tiles(*fk7, **skw), 20),
-               "k2": graph_ms(lambda: fused.fused_tiles(*fk2[False][0], **fk2[False][1]), 20)}
+               "k2": graph_ms(lambda: fused.fused_tiles(*fk2[False][0], **fk2[False][1]), 20),
+               "k8": graph_ms(lambda: bump.bump_tiles(fwork, inv_vp, **bkw), 20)}
 
     # The middle band of 3 and the second of 4: at 1080 rows, rows 360-719
     # and 270-539.
@@ -1693,6 +1730,18 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
                 "k7": {"bit_equal_to_plain": True, "vs_full_rows": k7_rows,
                        "max_live_lights_in_a_tile": int(tl.counts.max())}}
         if whole:
+            # K8 on the band's raster planes, its row offset y0: every plane
+            # bit for bit against its plain version and the full frame's rows.
+            bb = bump.bump_tiles(planes.clone(), inv_vp, y0=y0, **bkw)
+            pbb = bump.bump_tiles_reference(planes.clone(), inv_vp, y0=y0, **bkw)
+            torch.cuda.synchronize()
+            check(torch.equal(bb.view(i32), pbb.view(i32)), f"K8 band {y0}+{bh} differs from its plain version")
+            check(torch.equal(bb.view(i32), fbumped[:, y0 : y0 + bh].view(i32)),
+                  f"K8 band {y0}+{bh} differs from the full frame's rows")
+            b_moved = float((bb[1:4] != planes[1:4]).any(0).double().mean())
+            check(b_moved > 0.1, f"K8 band {y0}+{bh} perturbed only {b_moved} of the pixels")
+            line["k8"] = {"bit_equal_to_plain": True, "bit_equal_to_full_rows": True, "perturbed_frac": b_moved}
+            bwork = planes.clone()
             line["k2"] = {}
             for lists in (False, True):
                 args, kw = k2_inputs_band(b, y0, bh, lists)
@@ -1717,6 +1766,7 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
                   "k7": graph_ms(lambda: lighting_cuda.shade_tiles(*sargs, **bskw), 20)}
         if whole:
             dev_ms["k2"] = graph_ms(lambda: fused.fused_tiles(*k2args, **k2kw), 20)
+            dev_ms["k8"] = graph_ms(lambda: bump.bump_tiles(bwork, inv_vp, y0=y0, **bkw), 20)
         line["device_ms"] = dev_ms
         line["full_frame_device_ms"] = full_ms
         emit(line)
@@ -1734,6 +1784,8 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
         k2_b = bound(pairs * 128 + 4 * (2 * NT + 1) + 4 * (lt.numel() + mats.numel() + 32) + 4 * k2color.numel()
                      + 4 * NT, box_px * RASTER_OPS_PER_RECORD_PIXEL + int(cov.sum()) * SHADE_OPS_PER_PIXEL
                      + int((cov * k2live).sum()) * SHADE_OPS_PER_PIXEL_LIGHT)
+        b_cov = int((planes[raster_tiles.PLANE_MID] >= 0).sum())
+        k8_b = bound(4 * (plane + 9 * b_cov + 16), b_cov * BUMP_OPS_PER_PIXEL)
         src = "d3d12_deferred_renderer_tpu_torch/csrc/"
         tpu = "d3d12_deferred_renderer_tpu/ops/"
         for key, name, file, replaces, err, call, plain, bnd in (
@@ -1749,6 +1801,9 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
             ("k2_band", "fused_tiles (band)", "fused.cu", "fused.py:726", line["k2"]["inkernel_cull"]["max_abs_err"],
              lambda: fused.fused_tiles(*k2args, **k2kw), lambda: fused.fused_tiles_reference(*k2args, **k2kw),
              k2_b),
+            ("k8_band", "bump_tiles (band)", "bump.cu", "bump.py:196", 0.0,
+             lambda: bump.bump_tiles(bwork, inv_vp, y0=y0, **bkw),
+             lambda: bump.bump_tiles_reference(bwork, inv_vp, y0=y0, **bkw), k8_b),
         ):
             kernels[key] = dict(
                 name=name, route="cuda", source=src + file, replaces=tpu + replaces, launches=0,
@@ -1771,7 +1826,7 @@ def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
 
     scenes = {label: tp.arrays_from_state(c1_state0 if changes is None else state0)
               for label, changes, _ in BAND_PATHS_3 + BAND_PATHS_4}
-    band_launches = {"raster_tiles": 0, "raster_depth": 0, "shade_tiles": 0, "fused_tiles": 0}
+    band_launches = {"raster_tiles": 0, "raster_depth": 0, "shade_tiles": 0, "fused_tiles": 0, "bump_tiles": 0}
     for n, paths in ((3, BAND_PATHS_3), (4, BAND_PATHS_4)):
         t0 = time.perf_counter()
         ranks = run_bands(n, bands_job, (scenes, paths), device="cuda", timeout_s=300.0)
@@ -1818,7 +1873,7 @@ def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
                             "one card, so this shows correctness, not speed",
                   "spawn_and_run_seconds": spawn_s})
     for key, w in (("k6_band", "raster_tiles"), ("k3_band", "raster_depth"), ("k7_band", "shade_tiles"),
-                   ("k2_band", "fused_tiles")):
+                   ("k2_band", "fused_tiles"), ("k8_band", "bump_tiles")):
         kernels[key]["launches"] = band_launches[w]
         check(band_launches[w] > 0, f"{w} never launched on the band paths")
 
@@ -1871,13 +1926,135 @@ def time_staged(root: str, passes: int = 3) -> int:
            "K6": lambda: raster_tiles.raster_tiles(b.counts, b.offs, b.stream, **grid),
            "K7": lambda: lighting_cuda.shade_tiles(*sargs, **grid, gamma=cfg.gamma),
            "K7_without_heaviest_tile": lambda: lighting_cuda.shade_tiles(*no_heavy, **grid, gamma=cfg.gamma),
-           "K7_without_point_lights": lambda: lighting_cuda.shade_tiles(*no_lights, **grid, gamma=cfg.gamma)}
+           "K7_without_point_lights": lambda: lighting_cuda.shade_tiles(*no_lights, **grid, gamma=cfg.gamma),
+           "K8": bump_call(tp, raster_tiles.raster_tiles(b.counts, b.offs, b.stream, **grid), inv_vp, cfg)[0]}
     times = {k: [graph_ms(f, 50) for _ in range(passes)] for k, f in fns.items()}
     emit({"phase": "time_staged", "root": os.path.abspath(root), "device_ms": times,
           "best_device_ms": {k: min(v) for k, v in times.items()},
           "setup_threads": setup_source(cuda_build.CSRC_DIR)[1],
           "setup_ptxas": setup_ptxas(cuda_build.BuildInfo.log),
+          "bump_ptxas": ptxas_lines(cuda_build.BuildInfo.log, "bump_tile_kernel"),
           "timing": "device ms per call, 50 calls replayed from one CUDA graph, per pass"})
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    return 0
+
+
+def bump_call(tp, planes, inv_vp, cfg):
+    """(kernel, plain version) of K8 on the staged flagship's raster planes
+    [8, Hp, Wp], each a function of no arguments returning its normals
+    [3, Hp, Wp], for the wrappers of the checkout that `tp` was imported
+    from: the in-place wrappers' kernel on one copy of the planes (its
+    first call bumps them once) and plain version on a fresh copy; the
+    older out-of-place wrappers (those with bump_planes) both on the
+    fragments restacked into 7 planes."""
+    from d3d12_deferred_renderer_tpu_torch.ops import bump, raster_tiles
+
+    H, W, TH, TW = cfg.height, cfg.width, cfg.tile_h, cfg.tile_w
+    kw = dict(tile_h=TH, tile_w=TW, strength=cfg.bump_strength, freq=cfg.bump_frequency)
+    if hasattr(bump, "bump_planes"):  # the out-of-place signature
+        args = (bump.bump_planes(raster_tiles.fragments_from_planes(planes, H, W), *planes.shape[1:]),
+                bump.bump_uniforms(inv_vp, W, H))
+        kw.update(nty=planes.shape[1] // TH, ntx=planes.shape[2] // TW)
+        return (lambda: bump.bump_tiles(*args, **kw)), (lambda: bump.bump_tiles_reference(*args, **kw))
+    work = planes.clone()
+    kw.update(width=W, height=H)
+    return ((lambda: bump.bump_tiles(work, inv_vp, **kw)[1:4]),
+            (lambda: bump.bump_tiles_reference(planes.clone(), inv_vp, **kw)[1:4]))
+
+
+# --time-bump's copies of csrc/bump.cu: regular-expression substitutions in
+# bump.cuh and bump.cu, at least one of which must match.  fp32_math takes
+# float32 intrinsics for sin_rn and rsqrt_rn (wrong bits, timing only);
+# staging_only leaves the bump's arithmetic out (the out-of-place kernel copies
+# each normal through, the in-place kernel writes none).
+BUMP_ABLATIONS = {
+    "as_is": (),
+    "fp32_math": ((r"(float sin_rn\(float x\) \{)[^}]*\}", r"\1 return __sinf(x); }"),
+                  (r"(float rsqrt_rn\(float x\) \{)[^}]*\}", r"\1 return rsqrtf(x); }")),
+    "staging_only": ((r"bump::bump_pixel\(s_pl, tile_h, tile_w, i, n, strength, w2pf, nb\);",
+                      "nb[0] = n[0], nb[1] = n[1], nb[2] = n[2];"),
+                     (r"(bool perturb\([^{]*\{)", r"\1\n  return false;")),
+}
+
+
+def time_bump(root: str, passes: int = 3) -> int:
+    """The --time-bump mode (see the module docstring)."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch.ops import lighting, raster_tiles
+    from d3d12_deferred_renderer_tpu_torch.ops.binning import bin_triangles
+    from d3d12_deferred_renderer_tpu_torch.ops.transform import frame_matrices, setup_frame_triangles
+    from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=False, **CONFIG4_FLAGS)
+    _, state = flagship_scene(tp, cfg, dev)
+    state = tp.animate(state, cfg.yaw_per_frame, cfg)
+    grid = dict(nty=-(-cfg.height // cfg.tile_h), ntx=-(-cfg.width // cfg.tile_w), tile_h=cfg.tile_h,
+                tile_w=cfg.tile_w)
+    tris, _ = setup_frame_triangles(state, cfg)
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
+    planes = raster_tiles.raster_tiles(b.counts, b.offs, b.stream, **grid)
+    inv_vp = lighting.inverse_view_proj(frame_matrices(state, cfg)[1])
+    want = bump_call(tp, planes, inv_vp, cfg)[1]()
+
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=cuda_build.BUILD_DIR)
+    library = cuda_build.library
+    try:
+        procs = {}
+        for name, subs in BUMP_ABLATIONS.items():
+            src = os.path.join(tmp, name)
+            shutil.copytree(cuda_build.CSRC_DIR, src)
+            hits = 0
+            for fname in ("bump.cuh", "bump.cu"):
+                path = os.path.join(src, fname)
+                with open(path) as fh:
+                    text = fh.read()
+                for pattern, repl in subs:
+                    text, n = re.subn(pattern, repl, text)
+                    hits += n
+                with open(path, "w") as fh:
+                    fh.write(text)
+            check(hits > 0 or not subs, f"--time-bump: no substitution of {name} matched {root}'s sources")
+            procs[name] = subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", src, "-shared", "-o",
+                 os.path.join(tmp, f"libbump_{name}.so"), os.path.join(src, "bump.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs = {n: p.communicate()[0] for n, p in procs.items()}
+        check(all(p.returncode == 0 for p in procs.values()), f"nvcc failed: {logs}")
+        fns, libs = {}, {}
+        for name in BUMP_ABLATIONS:
+            lib = libs[name] = ctypes.CDLL(os.path.join(tmp, f"libbump_{name}.so"))
+            lib.bump_tiles_launch.argtypes = list(cuda_build.SIGNATURES["bump_tiles_launch"])
+            lib.bump_tiles_launch.restype = ctypes.c_int
+            cuda_build.library = lambda lib=lib: lib  # the wrapper's library, while this copy runs
+            fns[name] = bump_call(tp, planes, inv_vp, cfg)[0]
+            if name == "as_is":
+                got = fns[name]()
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                      f"K8 of {root} differs from its plain version")
+        times = {n: [] for n in fns}
+        for _ in range(passes):  # the copies in turns
+            for n, fn in fns.items():
+                cuda_build.library = lambda lib=libs[n]: lib
+                times[n].append(graph_ms(fn, 50))
+        emit({"phase": "time_bump", "root": os.path.abspath(root), "device_ms": times,
+              "best_device_ms": {k: min(v) for k, v in times.items()}, "bit_equal": True,
+              "ptxas": {n: ptxas_lines(logs[n], "bump_tile_kernel") for n in logs},
+              "timing": "device ms per call, 50 calls replayed from one CUDA graph, per pass"})
+    finally:
+        cuda_build.library = library
+        shutil.rmtree(tmp, ignore_errors=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     return 0
@@ -1983,6 +2160,8 @@ def time_setup_blocks(sizes=(64, 128, 256), passes: int = 3) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-staged"] and len(sys.argv) == 3:
         sys.exit(time_staged(sys.argv[2]))
+    if sys.argv[1:2] == ["--time-bump"] and len(sys.argv) == 3:
+        sys.exit(time_bump(sys.argv[2]))
     if sys.argv[1:] == ["--time-setup-blocks"]:
         sys.exit(time_setup_blocks())
     sys.exit(main())

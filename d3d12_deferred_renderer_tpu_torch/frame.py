@@ -13,13 +13,13 @@ read as "on the card".  Two paths:
   raster -> [bump] -> G-buffer encode -> Lambert, or [shadow map + PCF] +
   the per-tile light cull + PBR lighting -> bloom, tonemap, gamma, FXAA ->
   uint8.  With cfg.use_pallas the raster is the tile raster kernel over the
-  binned records (ops/raster_tiles), the bump the bump kernel
-  (ops/bump), the shadow map the depth-only setup and raster kernels
-  (ops/shadows) and the PBR lighting the G-buffer lighting kernel on
-  8 x 128 tiles (ops/lighting_cuda); without it, the whole-frame reference
-  rasterizer (ops/raster_ref), the block-form bump, and the 32-pixel-tile
-  plain lighting (lighting.shade_pbr_tiled), as the JAX package's CPU path
-  and its golden images use.
+  binned records (ops/raster_tiles), the bump the bump kernel on its
+  planes, in place (ops/bump), the shadow map the depth-only setup and
+  raster kernels (ops/shadows) and the PBR lighting the G-buffer lighting
+  kernel on 8 x 128 tiles (ops/lighting_cuda); without it, the whole-frame
+  reference rasterizer (ops/raster_ref), the block-form bump, and the
+  32-pixel-tile plain lighting (lighting.shade_pbr_tiled), as the JAX
+  package's CPU path and its golden images use.
 
 A kernel's wrapper runs the kernel on CUDA tensors and its plain version on
 CPU tensors.  PyTorch runs the frame eagerly, one launch after another on
@@ -71,11 +71,14 @@ def check_ported(cfg: RendererConfig) -> None:
             )
 
 
-def _rasterize(tris, cfg: RendererConfig):
+def _rasterize(tris, cfg: RendererConfig, inv_vp=None):
     """(FragmentPlanes, overflow): the tile raster kernel over the binned
-    records with cfg.use_pallas, else the whole-frame reference raster."""
+    records with cfg.use_pallas, and given the frame's inverse
+    view-projection inv_vp with cfg.normal_mapping the bump kernel on its
+    planes; else the whole-frame reference raster (render_stats bumps its
+    fragments in the block form)."""
     if cfg.use_pallas:
-        return rasterize_binned(tris.packed, tris.aabb, tris.valid, cfg, return_overflow=True)
+        return rasterize_binned(tris.packed, tris.aabb, tris.valid, cfg, return_overflow=True, inv_vp=inv_vp)
     frags = rasterize_packed(tris.packed, cfg.height, cfg.width)
     return frags, torch.zeros((), dtype=torch.int32, device=tris.packed.device)
 
@@ -91,12 +94,11 @@ def render_stats(state: SceneState, cfg: RendererConfig):
         return frame, {"overflow": overflow}
 
     tris, view_proj = setup_frame_triangles(state, cfg)
-    frags, overflow = _rasterize(tris, cfg)
     inv_vp = inverse_view_proj(view_proj)
-    if cfg.normal_mapping:
-        world = None if cfg.use_pallas else reconstruct_world_positions(frags.depth, view_proj, cfg, inv_vp)
-        frags = apply_normal_mapping(frags, world, cfg, cfg.bump_strength, cfg.bump_frequency,
-                                     inv_vp=inv_vp)
+    frags, overflow = _rasterize(tris, cfg, inv_vp)
+    if cfg.normal_mapping and not cfg.use_pallas:
+        world = reconstruct_world_positions(frags.depth, view_proj, cfg, inv_vp)
+        frags = apply_normal_mapping(frags, world, cfg, cfg.bump_strength, cfg.bump_frequency)
     gb = encode_gbuffer(frags, state.materials, cfg)
     if cfg.shading == "lambert":
         color = shade_lambert(gb, state.lights, cfg)

@@ -11,16 +11,23 @@ renderer computes the same normals from its own tile alone.
 - ``bump_planar`` is the per-block body, in plain PyTorch over [..., h, w]
   planes; csrc/bump.cuh is its device version, which the bump kernel
   (csrc/bump.cu) and the fused tile renderer (csrc/fused.cu) include.
-- ``apply_normal_mapping`` perturbs a frame's fragment normals: through the
-  bump kernel's wrapper ``bump_tiles`` with cfg.use_pallas and the inverse
-  view-projection (world position from depth per tile, the fused
-  renderer's sequence), else the block form over the given world
-  positions (the JAX package's CPU path).
+- ``bump_tiles`` is the bump kernel's wrapper (csrc/bump.cu; plain version
+  ``bump_tiles_reference``): with cfg.use_pallas the staged frame and the
+  staged band run it on the tile raster's planes, in place, before they
+  are cropped to fragments (raster_tiles.rasterize_binned), world
+  position from depth per tile, the fused renderer's sequence.  Its band
+  mode takes the band's first row y0; the frame's width and height stay
+  the full frame's.
+- ``apply_normal_mapping`` perturbs a frame's fragment normals in the
+  block form over the given world positions (the JAX package's CPU path).
 
 sin and rsqrt are taken in float64 and rounded once (xmath.sinf,
-xmath.rsqrtf), in the plain versions and in the kernels alike; XLA's float32
-sin and rsqrt are within 1 ULP of them, so the normals agree with the JAX
-package to a few float32 ULP (tests/test_torch_bump.py states the bounds).
+xmath.rsqrtf) in the plain versions; the kernels take sin the same way and
+rsqrt correctly rounded in float32, which equals the float64 route on every
+float32 input (``rsqrt_mismatches`` counts the inputs where it does not, on
+the card).  XLA's float32 sin and rsqrt are within 1 ULP of them, so the
+normals agree with the JAX package to a few float32 ULP
+(tests/test_torch_bump.py states the bounds).
 """
 from __future__ import annotations
 
@@ -31,15 +38,14 @@ import torch.nn.functional as F
 
 from ..config import RendererConfig
 from ..xmath import rsqrtf, sinf
-from .lighting_cuda import U_H, U_SIZE, U_W, _uniform_tail, world_from_depth
+from .lighting_cuda import U_H, U_INV_VP, U_SIZE, U_W, world_from_depth
 from .raster_ref import FragmentPlanes
-from .raster_tiles import image_to_tiles, tile_pixels, tiles_to_image
+from .raster_tiles import (
+    NUM_PLANES, PLANE_DEPTH, PLANE_MID, PLANE_NX, PLANE_NZ, PLANE_U, PLANE_V, check_band_rows, image_to_tiles,
+    tile_pixels, tiles_to_image,
+)
 
 F32 = torch.float32
-
-# Input planes of the bump kernel (leading dim).
-B_DEPTH, B_NX, B_U, B_MID = 0, 1, 4, 6
-NUM_BUMP_PLANES = 7
 
 
 def _ddx_p(a):
@@ -120,96 +126,94 @@ def bump_planar(world, uv, n, mid, strength: float, freq: float):
 # --------------------------------------------------------------------------
 
 
-def bump_tiles_reference(planes, uniforms, *, nty, ntx, tile_h, tile_w, strength, freq):
-    """Plain version of the bump kernel.
+def bump_tiles_reference(planes, inv_vp, *, width, height, y0=0, tile_h, tile_w, strength, freq):
+    """Plain version of the bump kernel: the normals of the tile raster's
+    planes perturbed in place.
 
-    planes [7, Hp, Wp] f32: depth, normal xyz, u, v, mesh id (padding at
-    depth 1, mesh id -1); uniforms [32] (the inverse view-projection and the
-    frame size are read).  Per tile: world position from depth, pixels
-    outside the frame count as background, bump_planar.  Returns the
-    normals [3, Hp, Wp]."""
-    p = image_to_tiles(planes, nty, ntx, tile_h, tile_w).reshape(NUM_BUMP_PLANES, -1, tile_h, tile_w)
-    px, py = (a.reshape(-1, tile_h, tile_w) for a in tile_pixels(nty, ntx, tile_h, tile_w, planes.device))
-    world = world_from_depth(uniforms, px, py, p[B_DEPTH])
-    inside = (px < uniforms[U_W]) & (py < uniforms[U_H])
-    mid = torch.where(inside, p[B_MID], torch.full_like(p[B_MID], -1.0))
-    out = bump_planar(world, (p[B_U], p[B_U + 1]), (p[B_NX], p[B_NX + 1], p[B_NX + 2]), mid,
-                      strength, freq)
-    return tiles_to_image(torch.stack(out).reshape(3, -1, tile_h * tile_w), nty, ntx, tile_h, tile_w)
+    planes [8, Hp, Wp] f32 in the tile raster's layout (raster_tiles.PLANE_*:
+    depth, normal xyz, u, v, mesh id, pad) on tile_h x tile_w tiles: rows
+    [y0, y0 + Hp) of a width x height frame; inv_vp [4, 4] the frame's
+    inverse view-projection.  Per tile: world position from depth, pixels
+    outside the frame as background, bump_planar; the normal planes take
+    the result, and a pixel that is not perturbed keeps its normal.
+    Returns planes."""
+    _, Hp, Wp = planes.shape
+    nty, ntx = Hp // tile_h, Wp // tile_w
+    p = image_to_tiles(planes[: PLANE_MID + 1], nty, ntx, tile_h, tile_w).reshape(PLANE_MID + 1, -1, tile_h, tile_w)
+    px, py = (a.reshape(-1, tile_h, tile_w) for a in tile_pixels(nty, ntx, tile_h, tile_w, planes.device, y0))
+    u = torch.zeros((U_SIZE,), dtype=F32, device=planes.device)
+    u[U_INV_VP : U_INV_VP + 16] = inv_vp.reshape(-1)
+    u[U_W], u[U_H] = float(width), float(height)
+    world = world_from_depth(u, px, py, p[PLANE_DEPTH])
+    inside = (px < u[U_W]) & (py < u[U_H])
+    mid = torch.where(inside, p[PLANE_MID], torch.full_like(p[PLANE_MID], -1.0))
+    out = bump_planar(world, (p[PLANE_U], p[PLANE_V]), tuple(p[PLANE_NX : PLANE_NZ + 1]), mid, strength, freq)
+    planes[PLANE_NX : PLANE_NZ + 1] = tiles_to_image(torch.stack(out).reshape(3, -1, tile_h * tile_w),
+                                                     nty, ntx, tile_h, tile_w)
+    return planes
 
 
-def bump_tiles(planes, uniforms, *, nty, ntx, tile_h, tile_w, strength, freq):
-    """Bump kernel: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (see bump_tiles_reference for the contract)."""
-    kw = dict(nty=nty, ntx=ntx, tile_h=tile_h, tile_w=tile_w, strength=strength, freq=freq)
+def bump_tiles(planes, inv_vp, *, width, height, y0=0, tile_h, tile_w, strength, freq):
+    """Bump kernel: perturbs the normals of the tile raster's planes in
+    place and returns planes; the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (see bump_tiles_reference for the contract)."""
+    kw = dict(width=width, height=height, y0=y0, tile_h=tile_h, tile_w=tile_w, strength=strength, freq=freq)
     if planes.device.type == "cpu":
-        return bump_tiles_reference(planes, uniforms, **kw)
+        return bump_tiles_reference(planes, inv_vp, **kw)
     from ..utils import cuda_build
 
-    Hp, Wp = nty * tile_h, ntx * tile_w
-    cuda_build.check_tensors(
-        planes.device,
-        planes=(planes, F32, (NUM_BUMP_PLANES, Hp, Wp)),
-        uniforms=(uniforms, F32, (U_SIZE,)),
-    )
+    cuda_build.check_tensors(planes.device, planes=(planes, F32, (NUM_PLANES, None, None)))
+    if inv_vp.device != planes.device or inv_vp.dtype != F32 or inv_vp.shape != (4, 4):
+        raise ValueError(f"inv_vp must be a float32 [4, 4] tensor on {planes.device}")
+    _, Hp, Wp = planes.shape
+    if Hp % tile_h or Wp % tile_w:
+        raise ValueError(f"planes of {Hp}x{Wp} are not whole {tile_h}x{tile_w} tiles")
     if tile_h * tile_w > 1024:
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's 1024")
     if tile_h < 2 or tile_w < 2:
         raise ValueError("the bump kernel needs tiles of at least 2 x 2 pixels")
-    out = torch.empty((3, Hp, Wp), dtype=F32, device=planes.device)
+    check_band_rows(y0, Hp)
     err = cuda_build.library().bump_tiles_launch(
-        planes.data_ptr(), uniforms.data_ptr(), nty, ntx, tile_h, tile_w,
-        float(strength), 2.0 * math.pi * freq, out.data_ptr(),
+        planes.data_ptr(), inv_vp.data_ptr(), inv_vp.stride(0), inv_vp.stride(1), Hp // tile_h, Wp // tile_w,
+        tile_h, tile_w, y0, float(width), float(height), float(strength), 2.0 * math.pi * freq,
         torch.cuda.current_stream(planes.device).cuda_stream,
     )
     cuda_build.raise_on_error(err, "bump_tiles")
     bump_tiles.launches += 1
-    return out
+    return planes
 
 
 bump_tiles.launches = 0
 
 
-def bump_uniforms(inv_vp: torch.Tensor, width: int, height: int) -> torch.Tensor:
-    """The [32] uniforms the bump kernel reads: the inverse view-projection
-    and the frame size (every other field zero)."""
-    z = torch.zeros((9,), dtype=F32, device=inv_vp.device)
-    return torch.cat([inv_vp.reshape(-1), z, _uniform_tail(0.0, width, height, 0.0, inv_vp.device)])
+def rsqrt_mismatches(device) -> int:
+    """The bump kernels' rsqrt (csrc/bump.cuh: the correctly rounded float32
+    one) against the plain versions' xmath.rsqrtf (float64 1 / sqrt, rounded
+    once), on the CUDA `device`: the count of float32 inputs, over every bit
+    pattern with the sign bit clear (zero, subnormals, normals, inf, NaN),
+    whose two results differ in their bits (a NaN matches a NaN).  The
+    kernels' normals equal the plain versions' only where it is 0."""
+    from ..utils import cuda_build
 
-
-def bump_planes(frags: FragmentPlanes, Hp: int, Wp: int) -> torch.Tensor:
-    """The bump kernel's input planes [7, Hp, Wp] from a frame's fragments,
-    padded to whole tiles with background (depth 1, mesh id -1, the rest 0)."""
-    H, W = frags.depth.shape
-    planes = torch.stack([frags.depth, *frags.normal.unbind(-1), *frags.uv.unbind(-1),
-                          frags.mesh_id.to(F32)])
-    planes = F.pad(planes, (0, Wp - W, 0, Hp - H))
-    if (Hp, Wp) != (H, W):
-        for p, fill in ((B_DEPTH, 1.0), (B_MID, -1.0)):
-            planes[p, H:, :] = fill
-            planes[p, :, W:] = fill
-    return planes
+    count = torch.zeros((1,), dtype=torch.int64, device=device)
+    err = cuda_build.library().bump_rsqrt_check_launch(
+        0, 1 << 31, count.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.raise_on_error(err, "bump_rsqrt_check")
+    return int(count)
 
 
 def apply_normal_mapping(
-    frags: FragmentPlanes, world_pos, cfg: RendererConfig, strength: float = 0.35,
-    freq: float = 24.0, inv_vp=None,
+    frags: FragmentPlanes, world_pos, cfg: RendererConfig, strength: float = 0.35, freq: float = 24.0,
 ) -> FragmentPlanes:
-    """Perturb the fragment normals with the procedural height field.
-
-    With cfg.use_pallas and the frame's inverse view-projection ``inv_vp``
-    the bump kernel runs: world positions from depth per tile, as the fused
-    renderer computes them (world_pos is not read).  Otherwise the block
-    form over world_pos [H, W, 3]; out-of-frame padding is background either
-    way, so a pixel on a partial block's frame edge keeps its normal."""
+    """Perturb the fragment normals with the procedural height field: the
+    block form over world_pos [H, W, 3] (the JAX package's CPU path; the
+    kernel path bumps the tile raster's planes, bump_tiles).  Out-of-frame
+    padding is background, so a pixel on a partial block's frame edge
+    keeps its normal."""
     H, W = frags.depth.shape
     bh, bw = cfg.tile_h, cfg.tile_w
     nby, nbx = -(-H // bh), -(-W // bw)
     Hp, Wp = nby * bh, nbx * bw
-    if cfg.use_pallas and inv_vp is not None:
-        out = bump_tiles(bump_planes(frags, Hp, Wp), bump_uniforms(inv_vp, W, H), nty=nby, ntx=nbx,
-                         tile_h=bh, tile_w=bw, strength=strength, freq=freq)
-        return frags._replace(normal=out[:, :H, :W].permute(1, 2, 0))
 
     def blocks(a, fill):  # [H, W] -> [nby, nbx, bh, bw]
         a = F.pad(a, (0, Wp - W, 0, Hp - H), value=fill)

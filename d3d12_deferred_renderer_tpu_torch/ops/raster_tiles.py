@@ -165,7 +165,7 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w, y0: int = 0,
     )
     if tile_h * tile_w > 1024:
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's 1024")
-    _check_band_rows(y0, nty * tile_h)
+    check_band_rows(y0, nty * tile_h)
     if records_per_block < 1:
         raise ValueError(f"records_per_block must be positive, got {records_per_block}")
     Hp, Wp = nty * tile_h, ntx * tile_w
@@ -184,7 +184,7 @@ def raster_tiles(counts, offs, stream, *, nty, ntx, tile_h, tile_w, y0: int = 0,
 raster_tiles.launches = 0
 
 
-def _check_band_rows(y0: int, rows: int) -> None:
+def check_band_rows(y0: int, rows: int) -> None:
     """The kernels take the band's first row as an int and compute pixel
     centres in float32: every row must stay below 2^24 to be exact."""
     if y0 < 0 or y0 + rows > 1 << 24:
@@ -230,7 +230,7 @@ def raster_depth(counts, offs, stream, *, nty, ntx, tile_h, tile_w, y0: int = 0,
     )
     if tile_h * tile_w > DEPTH_MAX_TILE_PIXELS:
         raise ValueError(f"tile of {tile_h}x{tile_w} pixels exceeds the kernel's {DEPTH_MAX_TILE_PIXELS}")
-    _check_band_rows(y0, nty * tile_h)
+    check_band_rows(y0, nty * tile_h)
     if records_per_block < 1:
         raise ValueError(f"records_per_block must be positive, got {records_per_block}")
     depth = torch.empty((nty * tile_h, ntx * tile_w), dtype=F32, device=stream.device)
@@ -275,18 +275,27 @@ def fragments_from_planes(planes: torch.Tensor, height: int, width: int) -> Frag
 
 
 def rasterize_binned(packed, aabb, valid, cfg: RendererConfig, return_overflow: bool = False,
-                     band_h: int | None = None, y_offset: int = 0):
+                     band_h: int | None = None, y_offset: int = 0, inv_vp=None):
     """Bin the [T, 32] records onto the cfg tile grid and rasterize every
     tile -> FragmentPlanes (the raster_ref.rasterize_packed contract), and
     with return_overflow the binning's int32 overflow count (tiles that lost
     triangles at a capacity cap).  With band_h, rows [y_offset, y_offset +
     band_h) of the frame only (any band height: a partial last tile row is
-    rasterized and cropped)."""
+    rasterized and cropped).  With cfg.normal_mapping and the frame's
+    inverse view-projection inv_vp, the bump kernel perturbs the planes'
+    normals in place before they are cropped (ops/bump.bump_tiles): the
+    staged frame's and the staged band's raster and bump, with no copy of
+    the planes between them."""
     H = band_h or cfg.height
     TH, TW = cfg.tile_h, cfg.tile_w
     nty, ntx = -(-H // TH), -(-cfg.width // TW)
     binned = bin_triangles(packed, aabb, valid, cfg, band_h, y_offset)
     planes = raster_tiles(binned.counts, binned.offs, binned.stream,
                           nty=nty, ntx=ntx, tile_h=TH, tile_w=TW, y0=y_offset)
+    if cfg.normal_mapping and inv_vp is not None:
+        from .bump import bump_tiles  # ops/bump builds on this module's tile helpers
+
+        bump_tiles(planes, inv_vp, width=cfg.width, height=cfg.height, y0=y_offset, tile_h=TH, tile_w=TW,
+                   strength=cfg.bump_strength, freq=cfg.bump_frequency)
     frags = fragments_from_planes(planes, H, cfg.width)
     return (frags, binned.overflow) if return_overflow else frags

@@ -1,12 +1,13 @@
 """Run N band ranks of the screen-row band path on one host.
 
 ``run_bands(n, job, args, device)`` spawns n processes (torch.multiprocessing,
-spawn method), joins them in one rows group (mesh.make_rows_group, at a
-free localhost port) and runs ``job(device, *args)`` in each, the rank's
-device first; it returns each rank's result in rank order.  A job returns
-host objects (numpy arrays, numbers): results come back pickled.  A spawned
-rank imports the module that defines its job, so a job lives in a module
-that imports no JAX (this one, or the script that runs the ranks).
+spawn method; on the card unless the caller passes device="cpu"), joins
+them in one rows group (mesh.make_rows_group, at a free localhost port)
+and runs ``job(device, *args)`` in each, the rank's device first; it
+returns each rank's result in rank order.  A job returns host objects
+(numpy arrays, numbers): results come back pickled.  A spawned rank
+imports the module that defines its job, so a job lives in a module that
+imports no JAX (this one, or the script that runs the ranks).
 
 Every wait has a deadline: a rank that raises, dies or is still running
 when ``timeout_s`` has passed fails the call, and every rank still alive
@@ -52,11 +53,18 @@ def _rank_main(rank, n, port, kind, job, args, results, timeout_s):
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_bands(n: int, job, args=(), device: str = "cpu", timeout_s: float = 300.0) -> list:
+def run_bands(n: int, job, args=(), device: str = "cuda", timeout_s: float = 300.0) -> list:
     """job(device, *args) in each of n band ranks -> [result of rank 0, ...].
-    device "cpu" (gloo) or "cuda" (a card per rank and NCCL when there are
-    enough cards, else every rank on card 0 and gloo).  Raises RuntimeError
+    device "cuda", the default (a card per rank and NCCL when there are
+    enough cards, else every rank on card 0 and gloo), or "cpu" (gloo).
+    Raises RuntimeError, before it spawns a rank, where the card is asked
+    for and there is none (it never falls back to the CPU); RuntimeError
     when a rank fails or dies, TimeoutError past timeout_s."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the band ranks run on the GPU by default; "
+            "pass device=\"cpu\" to run them on the CPU"
+        )
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()

@@ -23,13 +23,14 @@ fused tile renderer's band mode when frame._fused_eligible(cfg) and the
 band is a multiple of tile_h; otherwise the staged band, through the
 kernels (tile raster, lighting kernel) with cfg.use_pallas and the plain
 chain (reference raster, 32-pixel-tile lighting) without.  On the CPU every
-kernel's wrapper runs its plain version.
+kernel's wrapper runs its plain version.  The staged band's bump is the
+bump kernel on the band's raster planes with cfg.use_pallas (its row
+offset the band's first row), else the block form over the band's world
+positions, as JAX's band path runs it.
 
 Not yet ported (ROADMAP.md Queue 1 item 6): the triangle-sharded path
 (render_tri_sharded, _composite_tri), the batch-sharded entry points and
-dryrun.  The bump kernel has no row offset (ROADMAP.md Queue 2), so the
-staged band with normal mapping and cfg.use_pallas raises
-NotImplementedError; without cfg.use_pallas the plain bump runs on the band.
+dryrun.
 """
 from __future__ import annotations
 
@@ -146,31 +147,26 @@ def _render_band(state: SceneState, cfg: RendererConfig, y0: int, band_h: int, g
         return post.to_uint8(_post_band(hdr, cfg, g)), overflow
 
     tris, view_proj = setup_frame_triangles(state, cfg)
-    if cfg.use_pallas:
+    inv_vp = inverse_view_proj(view_proj)
+    if cfg.use_pallas:  # the tile raster, and with normal mapping the bump, on the band
         frags, overflow = rasterize_binned(tris.packed, tris.aabb, tris.valid, cfg, return_overflow=True,
-                                           band_h=band_h, y_offset=y0)
+                                           band_h=band_h, y_offset=y0, inv_vp=inv_vp)
     else:
         frags = rasterize_packed(tris.packed, band_h, cfg.width, y0)
         overflow = torch.zeros((), dtype=torch.int32, device=tris.packed.device)
-    color, s_overflow = _shade_band(frags, state, cfg, view_proj, y0, g)
+    color, s_overflow = _shade_band(frags, state, cfg, view_proj, inv_vp, y0, g)
     return color, overflow + s_overflow
 
 
-def _shade_band(frags, state: SceneState, cfg: RendererConfig, view_proj, y0: int, g: BandGroup):
-    """Bump, G-buffer encode, shading and post for the band in `frags`
-    (rows [y0, y0 + band_h) of the frame) -> (uint8 band, the shading's
-    overflow count)."""
+def _shade_band(frags, state: SceneState, cfg: RendererConfig, view_proj, inv_vp, y0: int, g: BandGroup):
+    """The block-form bump without cfg.use_pallas (with it the raster's
+    planes were bumped), G-buffer encode, shading and post for the band in
+    `frags` (rows [y0, y0 + band_h) of the frame) -> (uint8 band, the
+    shading's overflow count)."""
     band_h, W = frags.depth.shape
     rows = dict(y_offset=y0, full_height=cfg.height)
-    inv_vp = inverse_view_proj(view_proj)
     overflow = torch.zeros((), dtype=torch.int32, device=frags.depth.device)
-    if cfg.normal_mapping:
-        if cfg.use_pallas:
-            raise NotImplementedError(
-                "the staged band with normal mapping needs the bump kernel's row offset, not ported "
-                "yet (ROADMAP.md Queue 2); use fused bands of a multiple of tile_h rows, or "
-                "use_pallas=False"
-            )
+    if cfg.normal_mapping and not cfg.use_pallas:
         world = reconstruct_world_positions(frags.depth, view_proj, cfg, inv_vp, **rows)
         frags = apply_normal_mapping(frags, world, cfg, cfg.bump_strength, cfg.bump_frequency)
     gb = encode_gbuffer(frags, state.materials, cfg)

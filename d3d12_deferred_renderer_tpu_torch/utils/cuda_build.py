@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
 
 # C entry points: name -> argument types.  Each returns cudaGetLastError().
@@ -60,8 +61,11 @@ SIGNATURES = {
     # planes, n_planes, lights, n_rows, ids, lk, counts, uniforms, nty, ntx,
     # tile_h, tile_w, gamma, hdr, stream
     "shade_tiles_launch": (P, I, P, I, P, I, P, P, I, I, I, I, F, P, P),
-    # planes, uniforms, nty, ntx, tile_h, tile_w, strength, 2 pi freq, out, stream
-    "bump_tiles_launch": (P, P, I, I, I, I, F, F, P, P),
+    # planes (updated in place), inv_vp, its row and column strides, nty, ntx, tile_h, tile_w,
+    # first row, width, height, strength, 2 pi freq, stream
+    "bump_tiles_launch": (P, P, I, I, I, I, I, I, I, F, F, F, F, P),
+    # first bit pattern, count, mismatches, stream
+    "bump_rsqrt_check_launch": (U, U, P, P),
     # planes, vis, mats, n_mats, uniforms, Hp, Wp, hdr, stream
     "directional_resolve_launch": (P, P, P, I, P, I, I, P, P),
     # idx, val, n, out, stream

@@ -15,6 +15,10 @@ to both packages:
   1e-5: jitted XLA contracts its interpolations differently), and every
   plane bit-equal (int32 views) to the same rows of the port's full-frame
   call;
+* the bump kernel's plain version on a band of whole tiles (row offset
+  y0): bit-equal to the same rows of the full frame's call, and within
+  tests/test_torch_bump.py's contract of JAX's band bump (the block form
+  over the band's world positions);
 * the light cull (exact), shade_pbr_tiled and the lighting kernel's plain
   version with y_offset / full_height, at the tolerances of
   test_torch_lighting.py (rtol 2e-4, atol 2e-5) and equal overflow; the
@@ -41,6 +45,7 @@ import pytest
 import torch
 
 import d3d12_deferred_renderer_tpu as dxr
+from d3d12_deferred_renderer_tpu.ops import bump as jbump
 from d3d12_deferred_renderer_tpu.ops import lighting as jl
 from d3d12_deferred_renderer_tpu.ops import raster_pallas as jrp
 from d3d12_deferred_renderer_tpu.ops import shadows as jsh
@@ -52,7 +57,7 @@ from d3d12_deferred_renderer_tpu.ops.raster_ref import rasterize_packed as jax_r
 from d3d12_deferred_renderer_tpu.ops.transform import setup_frame_triangles as jax_setup
 
 import d3d12_deferred_renderer_tpu_torch as tp
-from d3d12_deferred_renderer_tpu_torch.ops import binning, fused, lighting, lighting_cuda, raster_tiles, shadows
+from d3d12_deferred_renderer_tpu_torch.ops import binning, bump, fused, lighting, lighting_cuda, raster_tiles, shadows
 from d3d12_deferred_renderer_tpu_torch.ops.gbuffer import GBuffer, encode_gbuffer
 from d3d12_deferred_renderer_tpu_torch.ops.raster_ref import rasterize_packed
 from d3d12_deferred_renderer_tpu_torch.ops.transform import TriSetup
@@ -198,6 +203,35 @@ def test_band_rasters_match_jax_and_full_rows(scene, y0, bh):
     _frags_equal(band, type(whole)(*(a[y0 : y0 + bh] for a in whole)))
     assert torch.equal(depth, band.depth)
     _frags_equal(band, got)
+
+
+@pytest.mark.parametrize("y0,bh", [b for b in BANDS if b[1] % 8 == 0],
+                         ids=[f"{y}+{h}" for y, h in BANDS if h % 8 == 0])
+def test_band_bump_matches_full_rows_and_jax(scene, y0, bh):
+    """The bump kernel's plain version on a band of whole tiles (its row
+    offset y0): all 8 planes bit-equal to the same rows of the full frame's
+    call; the normals within test_torch_bump.py's contract (5e-4, fewer
+    than 1% of values beyond 1e-4) of JAX's band bump, the block form over
+    reconstruct_world_positions(..., y_offset, full_height) of the band's
+    rasterize_packed fragments."""
+    H, W = CFG.height, CFG.width
+    jcfg = dataclasses.replace(CFG, normal_mapping=True)
+    kw = dict(width=W, height=H, tile_h=8, tile_w=128, strength=jcfg.bump_strength, freq=jcfg.bump_frequency)
+
+    def bumped(band_h, off):
+        b = binning.bin_triangles(scene["packed"], scene["aabb"], scene["valid"], TCFG, band_h, off)
+        planes = raster_tiles.raster_tiles(b.counts, b.offs, b.stream, nty=band_h // 8, ntx=2, tile_h=8,
+                                           tile_w=128, y0=off)
+        return bump.bump_tiles(planes, scene["inv_vp"], y0=off, **kw)
+
+    band = bumped(bh, y0)
+    assert torch.equal(_i32(band), _i32(bumped(H, 0)[:, y0 : y0 + bh]))
+    jfr = _jax_band_raster(np.array(scene["tris"].packed), y0, bh, W)
+    world = jl.reconstruct_world_positions(jfr.depth, scene["vp"], jcfg, y_offset=y0, full_height=H)
+    ref = np.asarray(jbump.apply_normal_mapping(jfr, world, jcfg, jcfg.bump_strength, jcfg.bump_frequency).normal)
+    d = np.abs(band[1:4].permute(1, 2, 0).numpy() - ref)
+    assert d.max() <= 5e-4 and (d > 1e-4).mean() < 0.01, (d.max(), (d > 1e-4).mean())
+    assert (ref != np.asarray(jfr.normal)).any(-1).mean() > 0.2  # the band was bumped
 
 
 # ---------------------------------------------------------------------------

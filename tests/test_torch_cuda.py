@@ -492,27 +492,75 @@ def _fragments(cfg, dev):
     return state, raster_tiles.rasterize_binned(tris.packed, tris.aabb, tris.valid, cfg), view_proj
 
 
+def _raster_planes(cfg, dev, y0=0, band_h=None):
+    """The tile raster kernel's planes [8, Hp, Wp] of the benchmark scene's
+    frame (rows [y0, y0 + band_h) with band_h) and the frame's inverse
+    view-projection."""
+    state = _scene(cfg, dev)
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    bh = band_h or cfg.height
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg, band_h, y0)
+    planes = raster_tiles.raster_tiles(b.counts, b.offs, b.stream, nty=-(-bh // cfg.tile_h),
+                                       ntx=-(-cfg.width // cfg.tile_w), tile_h=cfg.tile_h, tile_w=cfg.tile_w, y0=y0)
+    return planes, lighting.inverse_view_proj(view_proj)
+
+
+def _bump_kw(cfg):
+    return dict(width=cfg.width, height=cfg.height, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                strength=cfg.bump_strength, freq=cfg.bump_frequency)
+
+
 @pytest.mark.cuda
-def test_bump_kernel_matches_plain():
-    """Normals within 1e-6 (bit-equal on the card): the kernel and the plain
-    version round every operation once, sin and rsqrt in double precision
-    alike."""
+@pytest.mark.parametrize("size", [(1920, 1080), (200, 60)], ids=["1920x1080", "200x60_padded"])
+def test_bump_kernel_matches_plain(size):
+    """The bump kernel on the tile raster's planes, in place, one launch:
+    every plane bit-equal (int32 views) to its plain version's: both round
+    every operation once, sin in double precision alike, and the kernels'
+    rsqrt equals the plain version's everywhere
+    (test_bump_rsqrt_matches_plain_everywhere)."""
     from d3d12_deferred_renderer_tpu_torch.ops import bump
 
     dev = _cuda()
-    cfg = dataclasses.replace(CONFIG4, width=200, height=60, fused=False)
-    state, frags, view_proj = _fragments(cfg, dev)
-    inv_vp = lighting.inverse_view_proj(view_proj)
-    planes = bump.bump_planes(frags, 64, 256)
-    args = (planes, bump.bump_uniforms(inv_vp, 200, 60))
-    kw = dict(nty=8, ntx=2, tile_h=8, tile_w=128, strength=cfg.bump_strength, freq=cfg.bump_frequency)
+    W, H = size
+    cfg = dataclasses.replace(CONFIG4, width=W, height=H, fused=False)
+    planes, inv_vp = _raster_planes(cfg, dev)
     before = bump.bump_tiles.launches
-    got = bump.bump_tiles(*args, **kw)
-    ref = bump.bump_tiles_reference(*args, **kw)
+    got = bump.bump_tiles(planes.clone(), inv_vp, **_bump_kw(cfg))
+    ref = bump.bump_tiles_reference(planes.clone(), inv_vp, **_bump_kw(cfg))
     torch.cuda.synchronize()
     assert bump.bump_tiles.launches == before + 1
-    assert float((got - ref).abs().max()) <= 1e-6
-    assert float((got[:, :60, :200] != planes[1:4, :60, :200]).any(0).double().mean()) > 0.2
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert float((got[1:4, :H, :W] != planes[1:4, :H, :W]).any(0).double().mean()) > 0.1
+
+
+@pytest.mark.cuda
+def test_bump_kernel_band_matches_plain_and_full_rows():
+    """The bump kernel on rows 360-719 of a 1920x1080 frame (its row offset
+    y0 = 360): every plane bit-equal to its plain version's and to the same
+    rows of the whole frame's call."""
+    from d3d12_deferred_renderer_tpu_torch.ops import bump
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CONFIG4, width=1920, height=1080, fused=False)
+    planes, inv_vp = _raster_planes(cfg, dev, 360, 360)
+    full, _ = _raster_planes(cfg, dev)
+    got = bump.bump_tiles(planes.clone(), inv_vp, y0=360, **_bump_kw(cfg))
+    ref = bump.bump_tiles_reference(planes.clone(), inv_vp, y0=360, **_bump_kw(cfg))
+    whole = bump.bump_tiles(full, inv_vp, **_bump_kw(cfg))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), whole[:, 360:720].view(torch.int32))
+    assert float((got[1:4] != planes[1:4]).any(0).double().mean()) > 0.1
+
+
+@pytest.mark.cuda
+def test_bump_rsqrt_matches_plain_everywhere():
+    """The exhaustive check behind the kernels' float32 rsqrt: over every
+    float32 bit pattern with the sign bit clear, its bits equal the plain
+    versions' float64 1 / sqrt rounded once."""
+    from d3d12_deferred_renderer_tpu_torch.ops import bump
+
+    assert bump.rsqrt_mismatches(_cuda()) == 0
 
 
 @pytest.mark.cuda
@@ -869,20 +917,22 @@ def test_render_sharded_one_rank_on_the_card(config):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("config", ["fused", "staged_unaligned"])
+@pytest.mark.parametrize("config", ["fused", "staged_unaligned", "config4_staged"])
 def test_render_sharded_two_ranks_share_the_card(config):
-    """Two band ranks on one card (gloo, spawned processes with a deadline):
-    the assembled frame within 1 u8 on < 0.2% of the single-device frame,
-    overflow 0 summed; 360 rows in 2 bands of 180 (no multiple of 8) take
-    the staged branch."""
+    """Two band ranks on one card (gloo, spawned processes with a deadline;
+    run_bands's default device): the assembled frame within 1 u8 on < 0.2%
+    of the single-device frame, overflow 0 summed; 360 rows in 2 bands of
+    180 (no multiple of 8) take the staged branch; the staged config 4 runs
+    the bump kernel on each band's raster planes."""
     from d3d12_deferred_renderer_tpu_torch.parallel import run_bands
     from d3d12_deferred_renderer_tpu_torch.parallel.launch import sharded_frames
 
     dev = _cuda()
-    height = 368 if config == "fused" else 360
-    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=height, fused=True)
+    height = 360 if config == "staged_unaligned" else 368
+    base = dataclasses.replace(CONFIG4, fused=False) if config == "config4_staged" else tp.FLAGSHIP_CONFIG
+    cfg = dataclasses.replace(base, width=640, height=height, fused=config != "config4_staged")
     state = _scene(cfg, dev)
-    ranks = run_bands(2, sharded_frames, ([(tp.arrays_from_state(state), cfg)],), device="cuda", timeout_s=300.0)
+    ranks = run_bands(2, sharded_frames, ([(tp.arrays_from_state(state), cfg)],), timeout_s=300.0)
     single, sstats = tp.render_stats(state, cfg)
     for (frame, overflow), in ranks:
         assert overflow == int(sstats["overflow"]) == 0

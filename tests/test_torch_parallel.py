@@ -19,12 +19,14 @@ scene arrays.  Contracts (tests/test_parallel.py, tests/test_band_raster.py):
   light cap is too small and 0 otherwise;
 * through the kernels' plain versions (cfg.use_pallas): the fused band
   (in-kernel cull), the unsplit config-4 fused band (depth prepass, lists,
-  dense PCF, bump, bloom, FXAA) and the staged band on 20-row bands that
-  are no multiple of tile_h (the fused config falls to the staged branch),
-  within the PBR contract of the port's single-device frame;
-* every refusal of _check_band_safe, the height check, the staged band
-  with normal mapping on the kernels (NotImplementedError), and a failing
-  rank failing run_bands.
+  dense PCF, bump, bloom, FXAA), the staged band on 20-row bands that are
+  no multiple of tile_h (the fused config falls to the staged branch) and
+  the staged config-4 band (the bump kernel on the band's raster planes,
+  shadows, bloom), within the PBR contract of the port's single-device
+  frame;
+* every refusal of _check_band_safe, the height check, a failing rank
+  failing run_bands, and run_bands without a device refusing to start
+  where there is no card.  The CPU ranks here pass device="cpu".
 """
 import dataclasses
 
@@ -64,6 +66,10 @@ KERNEL_CASES = {
     # 20-row bands: no multiple of tile_h, so the staged branch.
     "staged_unaligned": (dataclasses.replace(dxr.FLAGSHIP_CONFIG, width=128, height=40, fused=True),
                          (8, None), 2),
+    # The staged config 4: the bump kernel on each band's raster planes.
+    "config4_staged": (dataclasses.replace(
+        dxr.FLAGSHIP_CONFIG, width=128, height=32, fused=False, shadows=True, shadow_map_size=64,
+        normal_mapping=True, bloom=True), (8, None), 2),
 }
 
 
@@ -93,7 +99,7 @@ def runs():
     for n in (4, 2):
         names = [name for name, c in cases.items() if c[2] == n]
         jobs = [(tp.arrays_from_state(states[name]), _tcfg(cases[name][0])) for name in names]
-        ranks = run_bands(n, sharded_frames, (jobs,), timeout_s=TIMEOUT_S)
+        ranks = run_bands(n, sharded_frames, (jobs,), device="cpu", timeout_s=TIMEOUT_S)
         for k, name in enumerate(names):
             out[name] = [r[k] for r in ranks]
     res = {}
@@ -223,15 +229,15 @@ def test_band_refusals_are_loud(change, bands, match):
             sharded.render_sharded(None, cfg)
 
 
-def test_staged_band_normal_mapping_on_the_kernels_raises():
-    """The bump kernel has no row offset yet: the staged band with normal
-    mapping and use_pallas raises, naming ROADMAP; use_pallas off renders."""
-    cfg = tp.RendererConfig(width=128, height=32, use_pallas=True, shading="pbr", normal_mapping=True)
-    state = tp.make_scene(tp.build_scene_geometry([tp.procedural.cube(1.0)]), cfg, device="cpu")
-    with pytest.MonkeyPatch.context() as mp:
-        _one_of_n_bands(mp, 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sharded.render_sharded(state, cfg)
+def test_run_bands_needs_a_card_by_default(monkeypatch):
+    """run_bands without a device runs its ranks on the card: where there
+    is none it raises RuntimeError before it spawns a rank."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spawned = []
+    monkeypatch.setattr(torch.multiprocessing, "get_context", lambda *a: spawned.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_bands(2, sharded_frames, ([],))
+    assert spawned == []
 
 
 def test_failing_rank_fails_run_bands():
@@ -240,4 +246,4 @@ def test_failing_rank_fails_run_bands():
     cfg = tp.RendererConfig(width=128, height=31, use_pallas=False)
     state = tp.make_scene(tp.build_scene_geometry([tp.procedural.cube(1.0)]), cfg, device="cpu")
     with pytest.raises(RuntimeError, match="not divisible"):
-        run_bands(2, sharded_frames, ([(tp.arrays_from_state(state), cfg)],), timeout_s=TIMEOUT_S)
+        run_bands(2, sharded_frames, ([(tp.arrays_from_state(state), cfg)],), device="cpu", timeout_s=TIMEOUT_S)
