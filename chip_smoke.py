@@ -100,7 +100,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              index_copy_'s ms, the bound, and torch.sort's ns/key at the
              same count.
 
-19. bands — the screen-row band path.  bands_kernels: K6, K3, K7, K2 and
+19. app    — the application path on the fused flagship, modelled on
+             tools/present_run.py: App with PresentQueue (depth 3) over 30
+             frames, every presented frame bit-equal to a separate
+             step_frame loop's from the same state (delivered FPS beside the
+             loop's unpresented ms/frame, a loop that reads every frame back
+             synchronously, and the device-to-host ms of one frame into
+             pinned memory); the same through DeltaPresentQueue (bytes
+             transferred over a full readback's, misses); 8 frames through
+             NativeFrameSink, read back by read_png; render_batch bit-equal
+             to step_frame; supersample=2 on config 1 (K1, K6 at 2560x1440)
+             and the flagship (K1, K2 at 3840x2160) bit-equal to the box
+             average of the frame at twice the size, overflow 0, config 1
+             within 1 u8 of its plain chain's; a checkpoint saved mid-orbit
+             and loaded onto the card resumes bit-exactly; one frame under
+             debug_layer raises nothing.  One line a part.
+20. bands — the screen-row band path.  bands_kernels: K6, K3, K7, K2 and
              K8 on the middle band of 3 (rows 360-719) and K6, K3 and K7 on
              the second band of 4 (rows 270-539: a padded last tile row) of
              the flagship frame, against their plain versions on the same
@@ -1565,6 +1580,12 @@ def main() -> int:
         device_ms=k9_ms, plain_ms=k9_plain_ms, **k9_bound, library_ms=k9_lib_ms, rows=n_keys,
     )
 
+    # ---- 19. app: the application path (App, the queues, the sink, render_batch,
+    # supersampling, checkpoints, the debug layer) ----
+    t_app = time.perf_counter()
+    for k, n in app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers).items():
+        total_launches[k] += n
+    emit({"phase": "app_done", "seconds": time.perf_counter() - t_app})
     for key, name in (("setup", "setup_triangles"), ("fused", "fused_tiles"),
                       ("raster", "raster_tiles"), ("shade", "shade_tiles"),
                       ("setup_depth", "setup_depth_triangles"), ("raster_depth", "raster_depth"),
@@ -1572,7 +1593,7 @@ def main() -> int:
         kernels[key]["launches"] = total_launches[name]
         check(total_launches[name] > 0, f"{name} never launched on the main paths")
 
-    # ---- 19. bands: the band kernels, then render_sharded's paths ----
+    # ---- 20. bands: the band kernels, then render_sharded's paths ----
     t_bands = time.perf_counter()
     band_kernel_phase(tp, state, dev, kernels)
     band_path_phase(tp, state0, c1_state0, dev, kernels)
@@ -1594,6 +1615,227 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+APP_FRAMES = 30
+
+
+def box_average(hi, s: int):
+    """The s x s box average of a uint8 frame [s H, s W, 3], by integer
+    arithmetic: each block's sum over s^2, rounded half to even."""
+    import torch
+
+    H, W = hi.shape[0] // s, hi.shape[1] // s
+    sums = hi.to(torch.int64).reshape(H, s, W, s, 3).sum(dim=(1, 3))
+    q, r = sums // (s * s), sums % (s * s)
+    up = (2 * r > s * s) | ((2 * r == s * s) & (q % 2 == 1))
+    return (q + up.to(torch.int64)).to(torch.uint8)
+
+
+def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
+    """The application path on the fused flagship (and config 1 for
+    supersampling), modelled on tools/present_run.py.  Each part runs with
+    every launch count set to 0 just before it and read just after; returns
+    the launches summed over the parts.  present: App with PresentQueue at
+    depth 3 over APP_FRAMES frames, each presented frame bit-equal to a
+    separate step_frame loop's from the same state; its delivered FPS timed
+    in turns with the same frames unpresented, read back synchronously,
+    through DeltaPresentQueue and through render_batch; the device-to-host
+    ms of one frame into pinned memory.  delta: the same frames through
+    DeltaPresentQueue.  sink: 8 frames through NativeFrameSink, read back
+    by read_png.  render_batch: 4 frames bit-equal to step_frame's.
+    supersample: config 1 (K1, K6)
+    and the flagship (K1, K2) at supersample=2, bit-equal to the box average
+    of the frame at twice the size, overflow 0; config 1 within 1 u8 of its
+    plain chain's box average.  checkpoint: save_scene mid-orbit, load_scene
+    onto the card, the next frame bit-equal.  debug_layer: one flagship frame
+    under the scope raises nothing and equals the frame outside it."""
+    import numpy as np
+    import torch
+
+    from d3d12_deferred_renderer_tpu_torch.runtime import App, NativeFrameSink, native_sink_available
+    from d3d12_deferred_renderer_tpu_torch.scene_io import load_scene, save_scene
+    from d3d12_deferred_renderer_tpu_torch.utils import debug_layer, read_png
+
+    total = {k.__name__: 0 for k in wrappers}
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+
+    def drive(fn):
+        """fn() with every launch count set to 0 just before and read just
+        after: (its result, {wrapper: launches})."""
+        reset_launches(wrappers)
+        out = fn()
+        got = {k.__name__: k.launches for k in wrappers}
+        for k, n in got.items():
+            total[k] += n
+        return out, got
+
+    def expect_launches(part, got, per_frame, frames):
+        want = {k.__name__: 0 for k in wrappers}
+        want.update({k: frames * n for k, n in per_frame.items()})
+        check(got == want, f"app {part}: launches {got}, expected {want}")
+
+    flagship = {"setup_triangles": 1, "fused_tiles": 1}
+
+    def host_timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # The reference: a separate step_frame loop from the same state.
+    def step_loop():
+        frames, states, s = [], [], state0
+        for _ in range(APP_FRAMES):
+            s, f = tp.step_frame(s, cfg)
+            frames.append(f)
+            states.append(s)
+        return frames, states
+
+    App(state0, cfg).run(4)  # warm-up: the caching host allocator's pinned blocks
+    (ref, ref_states), got = drive(step_loop)
+    expect_launches("step_frame loop", got, flagship, APP_FRAMES)
+    ref_host = [f.cpu().numpy() for f in ref]
+
+    def check_presented(part, kw):
+        """One App run that keeps every presented frame: each equal to the
+        reference's, in order.  Returns the queue."""
+        presented = []
+        with App(state0, cfg, present_callback=lambda i, f: presented.append((i, f)), **kw) as app:
+            app.run(APP_FRAMES)
+        check([i for i, _ in presented] == list(range(APP_FRAMES)), f"app {part}: presented out of order")
+        check(all(np.array_equal(f, r) for (_, f), r in zip(presented, ref_host)),
+              f"app {part}: a presented frame differs from step_frame's")
+        check(app.queue.frames_presented == APP_FRAMES and app.queue.in_flight == 0, f"app {part}: not drained")
+        return app.queue
+
+    # The timed loops drop their frames, as a consumer that writes them out
+    # would (so the caching host allocator recycles the pinned blocks), and
+    # run in turns, 3 rounds, the same APP_FRAMES frames each; render_batch
+    # keeps its stacked frames on the card.
+    def unpresented():
+        s = state0
+        for _ in range(APP_FRAMES):
+            s, _ = tp.step_frame(s, cfg)
+
+    def sync_readback():
+        s = state0
+        for _ in range(APP_FRAMES):
+            s, f = tp.step_frame(s, cfg)
+            f.cpu()
+
+    def app_loop(**kw):
+        def run():
+            with App(state0, cfg, **kw) as app:
+                app.run(APP_FRAMES)
+        return run
+
+    loops = {"unpresented": unpresented, "present_queue": app_loop(), "sync_readback": sync_readback,
+             "delta_queue": app_loop(delta_present=True),
+             "render_batch": lambda: tp.render_batch(state0, cfg, APP_FRAMES)}
+    ms = {name: [] for name in loops}
+    for _ in range(3):
+        for name, fn in loops.items():
+            (_, got), secs = host_timed(lambda: drive(fn))
+            expect_launches(name, got, flagship, APP_FRAMES)
+            ms[name].append(secs * 1e3 / APP_FRAMES)
+    best = {name: min(v) for name, v in ms.items()}
+
+    host = torch.empty(ref[0].shape, dtype=torch.uint8, pin_memory=True)
+    d2h_ms = cuda_ms(lambda: host.copy_(ref[0], non_blocking=True), 20)
+
+    queue, got = drive(lambda: check_presented("present", {}))
+    expect_launches("present", got, flagship, APP_FRAMES)
+    emit({"phase": "app", "ok": True, "part": "present", "resolution": f"{cfg.width}x{cfg.height}",
+          "frames": APP_FRAMES, "depth": cfg.frames_in_flight, "bit_equal_to_step_frame": True,
+          "delivered_fps": 1e3 / best["present_queue"], "unpresented_fps": 1e3 / best["unpresented"],
+          "sync_readback_fps": 1e3 / best["sync_readback"], "ms_per_frame_rounds": ms,
+          "d2h_ms_per_frame": d2h_ms, "d2h_gb_per_s": ref[0].numel() / d2h_ms / 1e6,
+          "frame_mib": ref[0].numel() / 2**20,
+          "timing": f"host clock around {APP_FRAMES} frames (App.run with its drain; a step_frame loop; one "
+                    "reading every frame back with .cpu()), each ending in a synchronise, presented frames "
+                    "dropped; 3 rounds in turns, FPS from the best; device-to-host by CUDA events over 20 "
+                    "copies into one pinned buffer"})
+
+    queue, got = drive(lambda: check_presented("delta", {"delta_present": True}))
+    expect_launches("delta", got, flagship, APP_FRAMES)
+    emit({"phase": "app", "ok": True, "part": "delta", "frames": APP_FRAMES, "bit_equal_to_step_frame": True,
+          "delivered_fps": 1e3 / best["delta_queue"],
+          "bytes_transferred": queue.bytes_transferred, "bytes_full": queue.bytes_full,
+          "bytes_ratio": queue.bytes_transferred / queue.bytes_full, "transfer_misses": queue.transfer_misses,
+          "tiles": queue.NT, "tile": f"{queue.th}x{queue.tw}"})
+
+    check(native_sink_available(), "app sink: the native frame sink library could not be built")
+    n_sink = 8
+    with tempfile.TemporaryDirectory(dir=build_dir) as out_dir:
+        def run_sink():
+            with NativeFrameSink(out_dir, cfg.width, cfg.height, 3, num_threads=4) as sink:
+                stats = App(state0, cfg, present_callback=sink.as_present_callback()).run(n_sink)
+                sink.flush()
+                return stats, sink.frames_written, sink.errors
+        ((stats, written, errors), got), sink_s = host_timed(lambda: drive(run_sink))
+        expect_launches("sink", got, flagship, n_sink)
+        check(written == n_sink and errors == 0, f"app sink: {written} frames written, {errors} errors")
+        for i in range(n_sink):
+            check(np.array_equal(read_png(os.path.join(out_dir, f"frame_{i:05d}.png")), ref_host[i]),
+                  f"app sink: frame {i} read back differs")
+    emit({"phase": "app", "ok": True, "part": "sink", "frames": n_sink, "pngs_equal": True, "threads": 4,
+          "launches": {k: v for k, v in got.items() if v},
+          "delivered_fps_with_flush": n_sink / sink_s, "app_run_fps": stats.fps})
+
+    (final, frames), got = drive(lambda: tp.render_batch(state0, cfg, 4))
+    expect_launches("render_batch", got, flagship, 4)
+    check(frames.shape == (4, cfg.height, cfg.width, 3)
+          and all(torch.equal(frames[i], ref[i]) for i in range(4)), "app render_batch: frames differ")
+    check(torch.equal(final.time, ref_states[3].time), "app render_batch: final clock differs")
+    emit({"phase": "app", "ok": True, "part": "render_batch", "frames": 4, "bit_equal_to_step_frame": True,
+          "ms_per_frame": best["render_batch"]})
+
+    for label, base_cfg, state, per_frame in (
+        ("config1", c1_cfg, tp.animate(c1_state0, 0.3, c1_cfg), {"setup_triangles": 1, "raster_tiles": 1}),
+        ("fused_flagship", cfg, ref_states[0], flagship),
+    ):
+        ss_cfg = dataclasses.replace(base_cfg, supersample=2)
+        hi_cfg = dataclasses.replace(base_cfg, width=2 * base_cfg.width, height=2 * base_cfg.height)
+        (res, got) = drive(lambda: tp.render_stats(state, ss_cfg))
+        frame, ovf = res[0], int(res[1]["overflow"])
+        expect_launches(f"supersample {label}", got, per_frame, 1)
+        hi, hi_stats = tp.render_stats(state, hi_cfg)
+        check(ovf == 0 and int(hi_stats["overflow"]) == 0, f"app supersample {label}: overflow {ovf}")
+        check(frame.shape == (base_cfg.height, base_cfg.width, 3) and torch.equal(frame, box_average(hi, 2)),
+              f"app supersample {label}: frame is not the box average of the {hi_cfg.width}x{hi_cfg.height} frame")
+        line = {"phase": "app", "ok": True, "part": "supersample", "config": label, "supersample": 2,
+                "rendered_at": f"{hi_cfg.width}x{hi_cfg.height}", "bit_equal_to_box_average": True,
+                "overflow": ovf, "launches": {k: v for k, v in got.items() if v},
+                "ms_per_frame": cuda_ms(lambda: tp.render(state, ss_cfg), 10),
+                "plain_size_ms_per_frame": cuda_ms(lambda: tp.render(state, base_cfg), 10)}
+        if label == "config1":
+            plain, plain_ovf, _ = staged_plain_chain(state, hi_cfg)
+            st = frame_stats(frame, box_average(plain, 2))
+            check(st["max_u8"] <= 1 and int(plain_ovf) == 0, f"app supersample {label}: vs plain chain {st}")
+            line["vs_plain_chain"] = st
+        emit(line)
+
+    mid = ref_states[6]
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
+        path = os.path.join(ckpt_dir, "scene.npz")
+        save_scene(path, mid)
+        restored = load_scene(path, state0)
+        ckpt_bytes = os.path.getsize(path)
+    check(restored.time.device == mid.time.device, "app checkpoint: not loaded onto the card")
+    check(torch.equal(tp.step_frame(restored, cfg)[1], ref[7]), "app checkpoint: the next frame differs")
+    emit({"phase": "app", "ok": True, "part": "checkpoint", "bytes": ckpt_bytes, "resumed_frame_bit_equal": True})
+
+    state = ref_states[0]
+    with debug_layer():
+        debug_frame, debug_s = host_timed(lambda: tp.render(state, cfg))
+    plain_frame, plain_s = host_timed(lambda: tp.render(state, cfg))
+    check(torch.equal(debug_frame, plain_frame), "app debug_layer: the frame differs under the scope")
+    emit({"phase": "app", "ok": True, "part": "debug_layer", "raised": False, "ms": debug_s * 1e3,
+          "ms_outside_the_scope": plain_s * 1e3})
+    return total
 
 
 def band_kernel_phase(tp, state, dev, kernels) -> None:

@@ -12,15 +12,20 @@ takes per-tile lists from a depth prepass, and takes shadows as a
 visibility plane or through the deferred-directional split.  calibrate
 derives a scene's capacity budgets.  parallel.render_sharded renders a
 frame as row bands over a torch.distributed group (make_rows_group joins
-one; parallel.run_bands runs N ranks on one host).  frame.check_ported
-says which configs raise NotImplementedError.  Scenes live on the CUDA device unless the caller
+one; parallel.run_bands runs N ranks on one host).  render_batch renders N
+consecutive frames and cfg.supersample box-averages an s-times frame.  The
+application path: runtime.App (the frame loop with the triple-buffered
+PresentQueue or the DeltaPresentQueue), runtime.NativeFrameSink and
+PassProfiler, scene_io checkpoints, utils (PNG IO, validate_scene,
+debug_layer) and the native C++ OBJ loader (models/native).
+frame.check_ported says which configs raise NotImplementedError.  Scenes live on the CUDA device unless the caller
 passes device="cpu"; a CUDA kernel runs for tensors on a CUDA device, its
 plain PyTorch version for tensors on the CPU.
 """
 from .calibrate import autotune, autotune_shadow
 from .config import FLAGSHIP_CONFIG, REFERENCE_CONFIG, RendererConfig
 from .convert import arrays_from_state, scene_from_arrays
-from .frame import render, render_gbuffer, render_stats, step_frame
+from .frame import render, render_batch, render_gbuffer, render_stats, step_frame
 from .models import build_instanced_geometry, build_scene_geometry, load_obj, procedural
 from .scene import (
     Camera,
@@ -45,6 +50,7 @@ __all__ = [
     "render",
     "render_stats",
     "render_gbuffer",
+    "render_batch",
     "step_frame",
     "render_sharded",
     "make_rows_group",

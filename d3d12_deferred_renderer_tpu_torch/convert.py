@@ -38,13 +38,19 @@ FIELDS = (
 )
 
 
+def field(state, path: str):
+    """The field of `state` at a dotted path of FIELDS."""
+    obj = state
+    for name in path.split("."):
+        obj = getattr(obj, name)
+    return obj
+
+
 def arrays_from_state(state) -> dict:
     """{dotted field path: numpy array} for every entry of FIELDS."""
     out = {}
     for path in FIELDS:
-        obj = state
-        for name in path.split("."):
-            obj = getattr(obj, name)
+        obj = field(state, path)
         if isinstance(obj, torch.Tensor):
             obj = obj.detach().cpu()
         out[path] = np.asarray(obj)

@@ -27,6 +27,7 @@ the current stream.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -45,6 +46,8 @@ from .ops.raster_tiles import rasterize_binned
 from .ops.shadows import render_shadow_map, shadow_visibility
 from .ops.transform import setup_frame_triangles
 from .scene import SceneState, animate
+from .utils.debug import check_finite
+from .xmath import divf
 
 
 def _fused_eligible(cfg: RendererConfig) -> bool:
@@ -58,7 +61,6 @@ def _fused_eligible(cfg: RendererConfig) -> bool:
 _NOT_PORTED = (
     (lambda c: c.shadows and c.shadow_window_gather,
      "the shadow window gather (off in the JAX package, its measured loss; item 9)"),
-    (lambda c: c.supersample > 1, "supersampling (item 2)"),
 )
 
 
@@ -87,8 +89,18 @@ def render_stats(state: SceneState, cfg: RendererConfig):
     """One frame -> (uint8 [H, W, 3], {"overflow": int32 tensor}): the count
     of tiles that dropped triangles or lights at a capacity cap, plus
     binning-tier budget excess.  Zero on every supported config; a loud
-    signal, never a silent drop, otherwise."""
+    signal, never a silent drop, otherwise.  With cfg.supersample = s > 1
+    the frame renders at s times the width and height through the same path
+    and is box-averaged as JAX's float32 mean: each s x s block's sum (exact
+    in float32) divided once by s^2, rounded half to even.  Under
+    utils.debug.debug_layer the float stages are checked for NaN and Inf."""
     check_ported(cfg)
+    if cfg.supersample > 1:
+        s = cfg.supersample
+        hi_cfg = dataclasses.replace(cfg, width=cfg.width * s, height=cfg.height * s, supersample=1)
+        hi, stats = render_stats(state, hi_cfg)
+        sums = hi.to(torch.float32).reshape(cfg.height, s, cfg.width, s, 3).sum(dim=(1, 3))
+        return torch.round(divf(sums, s * s)).to(torch.uint8), stats
     if _fused_eligible(cfg):
         frame, overflow = render_fused(state, cfg, return_overflow=True)
         return frame, {"overflow": overflow}
@@ -100,6 +112,7 @@ def render_stats(state: SceneState, cfg: RendererConfig):
         world = reconstruct_world_positions(frags.depth, view_proj, cfg, inv_vp)
         frags = apply_normal_mapping(frags, world, cfg, cfg.bump_strength, cfg.bump_frequency)
     gb = encode_gbuffer(frags, state.materials, cfg)
+    check_finite("G-buffer", *gb)
     if cfg.shading == "lambert":
         color = shade_lambert(gb, state.lights, cfg)
         if cfg.fxaa:
@@ -110,12 +123,15 @@ def render_stats(state: SceneState, cfg: RendererConfig):
             shadow_depth, light_vp, s_overflow = render_shadow_map(state, cfg, return_overflow=True)
             vis, v_overflow = shadow_visibility(gb.depth, view_proj, shadow_depth, light_vp, cfg,
                                                 return_overflow=True, inv_vp=inv_vp)
+            check_finite("shadow visibility", vis)
             overflow = overflow + s_overflow + v_overflow
         shade = shade_pbr_tiled_kernel if cfg.use_pallas else shade_pbr_tiled
         hdr, l_overflow = shade(gb, state.lights, cfg, view_proj, state.camera.eye,
                                 shadow_visibility=vis, return_overflow=True, inv_vp=inv_vp)
+        check_finite("HDR", hdr)
         overflow = overflow + l_overflow
         color = post.apply_post(hdr, cfg)
+    check_finite("colour before to_uint8", color)
     return post.to_uint8(color), {"overflow": overflow}
 
 
@@ -180,4 +196,15 @@ def step_frame(state: SceneState, cfg: RendererConfig) -> Tuple[SceneState, torc
     animation clock, render."""
     state = animate(state, cfg.yaw_per_frame, cfg)
     return state, render(state, cfg)
+
+
+def render_batch(state: SceneState, cfg: RendererConfig, num_frames: int):
+    """`num_frames` consecutive animated frames -> (final state, uint8
+    [num_frames, H, W, 3]): step_frame in a loop on the state's device, the
+    frames stacked (JAX scans step_frame inside one jitted program)."""
+    frames = []
+    for _ in range(num_frames):
+        state, frame = step_frame(state, cfg)
+        frames.append(frame)
+    return state, torch.stack(frames)
 

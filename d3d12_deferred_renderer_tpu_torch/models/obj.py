@@ -5,7 +5,9 @@ A copy of the pure-Python loader of d3d12_deferred_renderer_tpu/models/obj.py
 carries its own, and tests/test_torch_staged.py pins the two equal on the
 reference's assets.  It replicates LoadObjFile (source/main.cpp:916-1045):
 dedup keyed on the (vertex, normal, uv) index triple, fan triangulation,
-zeros for missing normal/uv indices.  The native C++ loader is not ported.
+zeros for missing normal/uv indices.  ``load_obj`` takes the native C++
+loader (models/native.py) first and this one only where the library cannot
+be built, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -122,13 +124,26 @@ def load_obj_python(path: str) -> MeshData:
     )
 
 
-def load_obj(path: str, generate_normals: bool = True) -> MeshData:
-    """Load an OBJ file.  With generate_normals (default), meshes without
-    `vn` data get faceted geometric normals instead of the zeros the
-    reference would shade black."""
+def load_obj(path: str, prefer_native: bool = True, generate_normals: bool = True) -> MeshData:
+    """Load an OBJ file with the native C++ loader when it can be built,
+    else (or with prefer_native=False) the Python loader.  Only the
+    library's absence falls back: a native parse error propagates.  With
+    generate_normals (default), meshes without `vn` data get faceted
+    geometric normals instead of the zeros the reference would shade black."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"failed to read obj file: {path}")
-    mesh = load_obj_python(path)
+    mesh = None
+    if prefer_native:
+        from .native import load_obj_native, native_available
+
+        try:
+            native_ok = native_available()
+        except OSError:  # a library that exists but cannot be loaded
+            native_ok = False
+        if native_ok:
+            mesh = load_obj_native(path)
+    if mesh is None:
+        mesh = load_obj_python(path)
     if generate_normals and not mesh.has_normals:
         mesh = mesh.with_flat_normals()
     return mesh

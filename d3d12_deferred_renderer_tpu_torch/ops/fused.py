@@ -61,6 +61,7 @@ import torch.nn.functional as F
 
 from ..config import RendererConfig
 from ..scene import Materials, SceneState
+from ..utils.debug import check_finite
 from . import post
 from .binning import CHUNK, bin_triangles
 from .bump import bump_planar
@@ -401,6 +402,7 @@ def finish_frame(color, cfg: RendererConfig, hdr: bool) -> torch.Tensor:
     color = color.permute(1, 2, 0)
     if cfg.fxaa:
         color = post.fxaa(color)
+    check_finite("colour before to_uint8", color)
     return post.to_uint8(color)
 
 
@@ -457,6 +459,7 @@ def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool =
         if not split:
             vis, v_overflow = shadow_visibility(depth_pre, view_proj, sd, lvp, cfg,
                                                 return_overflow=True, inv_vp=inv_vp, **rows)
+            check_finite("shadow visibility", vis)
             overflow = overflow + v_overflow
             vis = F.pad(vis, (0, ntx * TW - W, 0, nty * TH - H), value=1.0)
     out, tile_overflow = fused_tiles(
@@ -467,6 +470,7 @@ def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool =
         hdr_out=cfg.bloom or split or band, aux=split,
         light_ids=light_ids, light_counts=light_counts, vis=vis,
     )
+    check_finite("fused kernel output", out[0:3, :H, :W])
     overflow = overflow + tile_overflow.sum().to(torch.int32)
     color = out[0:3]
     if band:
@@ -474,6 +478,7 @@ def render_fused(state: SceneState, cfg: RendererConfig, return_overflow: bool =
         return (hdr, overflow) if return_overflow else hdr
     if split:
         vis, v_overflow = split_visibility(out, view_proj, sd, lvp, cfg, uniforms, inv_vp)
+        check_finite("shadow visibility", vis)
         overflow = overflow + v_overflow
         color = directional_resolve(out, vis, mats, uniforms)
     frame = finish_frame(color, cfg, hdr=cfg.bloom or split)

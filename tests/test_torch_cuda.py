@@ -10,6 +10,7 @@ chip_smoke.py makes the same comparisons at the flagship size.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -937,3 +938,126 @@ def test_render_sharded_two_ranks_share_the_card(config):
     for (frame, overflow), in ranks:
         assert overflow == int(sstats["overflow"]) == 0
         assert _close_u8(torch.from_numpy(frame).to(dev, torch.int32), single.to(torch.int32), 2e-3)
+
+
+# ---- the application path (runtime/, render_batch, supersampling) ----
+
+FUSED_SMALL = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=256, height=128, fused=True)
+
+
+@pytest.mark.cuda
+def test_present_queue_push_waits_for_no_other_frame():
+    """push starts its frame's copy and presents the oldest frame waiting on
+    that frame's event only: behind a long device sleep and a newer frame,
+    push returns at once while the stream is still busy, and the newer
+    frame's bytes come out right later."""
+    import time
+
+    from d3d12_deferred_renderer_tpu_torch.runtime import PresentQueue
+
+    dev = _cuda()
+    shape = (1080, 1920, 3)
+    q = PresentQueue(depth=1)
+    for i in range(3):  # warm the caching host allocator's pinned blocks
+        q.push(torch.full(shape, i, dtype=torch.uint8, device=dev))
+    list(q.drain())
+    torch.cuda.synchronize()
+    assert q.push(torch.full(shape, 7, dtype=torch.uint8, device=dev)) is None
+    torch.cuda._sleep(int(2e9))  # over half a second of device time
+    newer = torch.full(shape, 9, dtype=torch.uint8, device=dev)
+    t0 = time.perf_counter()
+    out = q.push(newer)
+    dt = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream(dev).query()
+    assert busy and dt < 0.1, (busy, dt)
+    assert isinstance(out, np.ndarray) and out.shape == shape and (out == 7).all()
+    last = q.present_next()
+    assert (last == 9).all() and q.frames_presented == 5 and q.in_flight == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [False, True], ids=["present_queue", "delta_queue"])
+def test_app_frames_equal_step_frame_on_the_card(delta):
+    from d3d12_deferred_renderer_tpu_torch.runtime import App
+
+    dev = _cuda()
+    state = _scene(FUSED_SMALL, dev)
+    presented = []
+    with App(state, FUSED_SMALL, present_callback=lambda i, f: presented.append((i, f)),
+             delta_present=delta) as app:
+        app.run(8)
+    assert [i for i, _ in presented] == list(range(8))
+    s = state
+    for _, f in presented:
+        s, ref = tp.step_frame(s, FUSED_SMALL)
+        np.testing.assert_array_equal(f, ref.cpu().numpy())
+    assert torch.equal(app.state.time, s.time)
+
+
+@pytest.mark.cuda
+def test_delta_queue_bit_identical_on_the_card():
+    """The same frames through a queue fed on the card and one fed on the
+    CPU: every present equals its frame and both queues count the same
+    bytes and misses (the pack's bytes do not depend on the device)."""
+    from d3d12_deferred_renderer_tpu_torch.runtime import DeltaPresentQueue
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    cur = np.zeros((64, 256, 3), np.uint8)
+    frames = []
+    for i in range(40):
+        cur = cur.copy()
+        if i % 13 == 12:
+            cur[:] = rng.integers(0, 256, cur.shape, dtype=np.uint8)  # every tile: a tile miss
+        elif i % 7 == 6:
+            cur[8:16, 64:192] = i  # whole tiles: a pixel miss once calibrated
+        else:
+            cur[rng.integers(0, 64), rng.integers(0, 256), 0] = i
+        frames.append(cur)
+    queues = [DeltaPresentQueue(64, 256, depth=3) for _ in range(2)]
+    outs = [[], []]
+    for f in frames:
+        for q, out, t in zip(queues, outs, (torch.from_numpy(f).to(dev), torch.from_numpy(f))):
+            got = q.push(t)
+            if got is not None:
+                out.append(got)
+    for q, out in zip(queues, outs):
+        out.extend(q.drain())
+        q.close()
+    for f, a, b in zip(frames, *outs):
+        np.testing.assert_array_equal(a, f)
+        np.testing.assert_array_equal(b, f)
+    gpu, cpu = queues
+    assert (gpu.bytes_transferred, gpu.transfer_misses) == (cpu.bytes_transferred, cpu.transfer_misses)
+    assert gpu.transfer_misses >= 2 and gpu.bytes_transferred < gpu.bytes_full
+
+
+@pytest.mark.cuda
+def test_render_batch_on_the_card():
+    dev = _cuda()
+    state = _scene(FUSED_SMALL, dev)
+    before = fused.fused_tiles.launches
+    final, frames = tp.render_batch(state, FUSED_SMALL, 4)
+    assert fused.fused_tiles.launches - before == 4
+    s = state
+    for i in range(4):
+        s, f = tp.step_frame(s, FUSED_SMALL)
+        assert torch.equal(frames[i], f), i
+    assert torch.equal(final.time, s.time)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fused", "staged"])
+def test_supersample_on_the_card(config):
+    """supersample=2 is the box average (sum over 4, rounded half to even)
+    of the frame rendered at twice the size, overflow 0."""
+    dev = _cuda()
+    cfg = dataclasses.replace(FUSED_SMALL, fused=config == "fused")
+    state = _scene(cfg, dev)
+    got, stats = tp.render_stats(state, dataclasses.replace(cfg, supersample=2))
+    hi, _ = tp.render_stats(state, dataclasses.replace(cfg, width=2 * cfg.width, height=2 * cfg.height))
+    sums = hi.to(torch.int64).reshape(cfg.height, 2, cfg.width, 2, 3).sum(dim=(1, 3))
+    q, r = sums // 4, sums % 4
+    want = (q + ((r > 2) | ((r == 2) & (q % 2 == 1))).to(torch.int64)).to(torch.uint8)
+    assert torch.equal(got, want)
+    assert int(stats["overflow"]) == 0

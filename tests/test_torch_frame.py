@@ -155,7 +155,13 @@ def test_port_imports_no_jax():
         "d3d12_deferred_renderer_tpu_torch.calibrate, "
         "d3d12_deferred_renderer_tpu_torch.models.obj, "
         "d3d12_deferred_renderer_tpu_torch.parallel, "
-        "d3d12_deferred_renderer_tpu_torch.parallel.launch; "
+        "d3d12_deferred_renderer_tpu_torch.parallel.launch, "
+        "d3d12_deferred_renderer_tpu_torch.runtime, "
+        "d3d12_deferred_renderer_tpu_torch.scene_io, "
+        "d3d12_deferred_renderer_tpu_torch.utils.debug, "
+        "d3d12_deferred_renderer_tpu_torch.utils.image, "
+        "d3d12_deferred_renderer_tpu_torch.utils.native_build, "
+        "d3d12_deferred_renderer_tpu_torch.models.native; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'d3d12_deferred_renderer_tpu.'))]; "
         "assert not bad and 'd3d12_deferred_renderer_tpu' not in sys.modules, bad"
@@ -165,10 +171,9 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("change", [
     dict(shadows=True, fused=False, shadow_window_gather=True),
-    dict(supersample=2),
 ], ids=lambda c: next(iter(c)) if len(c) == 1 else "_".join(c)[-20:])
 def test_configs_outside_the_slice_raise(change):
-    """The window gather (rejected by design) and supersampling raise."""
+    """The window gather (rejected by design) raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tp.frame.check_ported(dataclasses.replace(TCFG, **change))
 
@@ -182,13 +187,14 @@ def test_configs_outside_the_slice_raise(change):
     dict(shadows=True), dict(inkernel_light_cull=False),
     dict(shadows=True, deferred_directional=True, shadow_vis_downsample=2),
     dict(shadows=True, fused=False, shadow_bin_tiers=(4, 32, 512, 256, 64, 16, 26112)),
+    dict(supersample=2),
 ], ids=lambda c: "_".join(c))
 def test_staged_configs_are_ported(change):
     """The staged frame takes Lambert, the unfused and unquantized PBR
     frames and the config-4 stack; the fused frame takes the bump, bloom,
     FXAA, shadows with or without the deferred-directional split, and the
-    depth prepass with per-tile light lists; downsampled PCF and calibrated
-    shadow tiers are ported."""
+    depth prepass with per-tile light lists; downsampled PCF, calibrated
+    shadow tiers and supersampling are ported."""
     tp.frame.check_ported(dataclasses.replace(TCFG, **change))
 
 
