@@ -132,6 +132,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              4th step of the 64-step orbit, the assembled frame against the
              single-device frame of the same state (exact for config 1, else
              within 1 u8 on < 0.2% of pixels), each rank's ms/frame.
+             In the same spawns, the mesh paths (parallel.make_mesh): in 4
+             ranks render_frames_batch_tri_sharded of the staged flagship
+             (2 frames, mesh frame 1 x tri 2 x rows 2 declared (frame, tri,
+             rows): 270-row sub-bands) and render_frames_batch_sharded of
+             the fused flagship config (4 frames, frame 2 x rows 2: 540-row
+             bands, the staged branch); in 3, render_tri_sharded of the
+             staged config 4 (3 triangle shards, 360-row sub-bands, K8 on
+             each composited sub-band).  Each: every rank's launches, the
+             overflow 0 at 4 calls around the orbit, the last call's frames
+             against render_stats at the same clocks (the staged frame for
+             the triangle shards) within 1 u8 on < 0.2%, the bytes a rank
+             puts into collectives a frame, ms/frame.  Then
+             dryrun_multichip(4) on the card (its kernel step launches K2).
 
 Then the card's name and power limit (nvidia-smi), the kernels line (with
 the band entries k6_band, k3_band, k7_band, k2_band, k8_band), and the last line
@@ -689,14 +702,10 @@ def bands_job(device, scenes, paths, passes: int = 2, frames_per_pass: int = 10)
     import torch.distributed as dist
 
     import d3d12_deferred_renderer_tpu_torch as tp
-    from d3d12_deferred_renderer_tpu_torch.ops import (
-        bump, fused, lighting_cuda, raster_tiles, scatter, setup_cuda,
-    )
     from d3d12_deferred_renderer_tpu_torch.parallel import render_sharded
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import kernel_wrappers
 
-    wrappers = (setup_cuda.setup_triangles, fused.fused_tiles, raster_tiles.raster_tiles,
-                lighting_cuda.shade_tiles, setup_cuda.setup_depth_triangles, raster_tiles.raster_depth,
-                bump.bump_tiles, fused.directional_resolve, scatter.row_scatter)
+    wrappers = kernel_wrappers()
     out = []
     for label, changes, _ in paths:
         cfg = band_path_config(tp, changes)
@@ -749,6 +758,101 @@ BAND_PATH_LAUNCHES = {
 }
 
 
+# The mesh paths of the bands phase (parallel.make_mesh; ranks sharing the
+# card through gloo), each (label, config changes from the flagship, entry,
+# axis sizes, axis names, keywords, frames a call): the triangle shards x
+# row bands x frames of the staged flagship on the mesh declared (frame,
+# tri, rows), 270-row sub-bands; the staged config 4 over 3 triangle shards
+# (360-row sub-bands, whole tiles for the bump kernel on each composited
+# sub-band); frames x rows of the fused flagship config (540-row bands:
+# no whole tiles, so the staged branch, as JAX's).
+MESH_PATHS_4 = (
+    ("tri_rows_3axis", dict(fused=False), "tri_frames", (1, 2, 2), ("frame", "tri", "rows"),
+     dict(frame_axis="frame", tri_axis="tri", rows_axis="rows"), 2),
+    ("frames_rows", dict(fused=True), "frames", (2, 2), ("frame", "rows"),
+     dict(frame_axis="frame", rows_axis="rows"), 4),
+)
+MESH_PATHS_3 = (
+    ("tri_config4", dict(fused=False, **CONFIG4_FLAGS), "tri", (3,), ("tri",), dict(tri_axis="tri"), 1),
+)
+# The kernels' launches for each frame a rank renders on each mesh path.
+MESH_PATH_LAUNCHES = {
+    "tri_rows_3axis": {"setup_triangles": 1, "raster_tiles": 1, "shade_tiles": 1},
+    "tri_config4": {"setup_triangles": 1, "raster_tiles": 1, "bump_tiles": 1, "setup_depth_triangles": 1,
+                    "raster_depth": 1, "shade_tiles": 1},
+    "frames_rows": {"setup_triangles": 1, "raster_tiles": 1, "shade_tiles": 1},
+}
+MESH_CALLS = 4  # calls a path: the clocks of animation_times at 4 starts around the orbit
+
+
+def mesh_path_starts():
+    return [k * 2.0 * math.pi / MESH_CALLS for k in range(MESH_CALLS)]
+
+
+def mesh_paths_job(device, scene, paths):
+    """One rank of the bands phase's mesh paths (run with bands_job through
+    parallel.launch.run_calls): each path on parallel.make_mesh of its
+    axes, with every launch count and the collective byte count of this
+    rank set to 0 just before it and read just after: one warm-up call,
+    then MESH_CALLS calls at clocks around the orbit (summed overflow),
+    the last 3 of them timed by CUDA events and the host clock.  Returns
+    one dict a path; rank 0's carries the last call's frames."""
+    import torch
+    import torch.distributed as dist
+
+    import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch.parallel import (
+        animation_times, make_mesh, render_frames_batch_sharded, render_frames_batch_tri_sharded,
+        render_tri_sharded, sharded,
+    )
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    state = tp.scene_from_arrays(scene, device)
+    out = []
+    for label, changes, entry, sizes, names, kw, n_frames in paths:
+        cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, **changes)
+        mesh = make_mesh(sizes, names)
+
+        def call(start):
+            times = animation_times(start, n_frames, device=device)
+            if entry == "tri":
+                frame, stats = render_tri_sharded(sharded._with_time(state, times[0]), cfg, mesh,
+                                                  return_stats=True, **kw)
+                return frame[None], stats["overflow"]
+            fn = render_frames_batch_tri_sharded if entry == "tri_frames" else render_frames_batch_sharded
+            frames, stats = fn(state, times, cfg, mesh, return_stats=True, **kw)
+            return frames, stats["overflow"]
+
+        reset_launches(wrappers)
+        sharded.bytes_sent = 0
+        call(0.0)  # warm-up
+        ovf, timed, frames = [], [], None
+        for k, start in enumerate(mesh_path_starts()):
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            frames, o = call(start)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ovf.append(int(o))
+            if k:
+                timed.append((ev[0].elapsed_time(ev[1]), (time.perf_counter() - t_host) * 1e3))
+        per_rank = n_frames // mesh.shape.get("frame", 1) if entry != "tri" else 1
+        rendered = per_rank * (MESH_CALLS + 1)
+        out.append({
+            "label": label, "rank": dist.get_rank(), "frames_rendered": rendered,
+            "launches": {w.__name__: w.launches for w in wrappers}, "overflow": ovf,
+            "bytes_per_frame": sharded.bytes_sent / rendered,
+            "branch": sharded.band_branch(cfg, cfg.height // mesh.shape["rows"]) if entry == "frames" else "staged",
+            "ms_per_frame": [t[0] / per_rank for t in timed], "host_ms_per_frame": [t[1] / per_rank for t in timed],
+            "frames_sum": int(frames.to(torch.int64).sum()),
+            "frames": frames.cpu().numpy() if dist.get_rank() == 0 else None,
+        })
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -772,13 +876,12 @@ def main() -> int:
         frame_matrices, setup_depth_reference, setup_frame_triangles,
         setup_triangles_reference,
     )
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import kernel_wrappers
     from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
 
     t_start = time.perf_counter()
     check("jax" not in sys.modules, "the port imported jax")
-    wrappers = (setup_cuda.setup_triangles, fused.fused_tiles, raster_tiles.raster_tiles,
-                lighting_cuda.shade_tiles, setup_cuda.setup_depth_triangles, raster_tiles.raster_depth,
-                bump.bump_tiles, fused.directional_resolve, scatter.row_scatter)
+    wrappers = kernel_wrappers()
     no_launch = {k.__name__: 0 for k in wrappers}
 
     # ---- 1. build ----
@@ -2055,26 +2158,32 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
 
 
 def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
-    """render_sharded's paths (BAND_PATHS_3 in 3 ranks, BAND_PATHS_4 in 4),
-    the ranks sharing this card through a gloo group: each rank's launches
-    (every band kernel of the path launched once a frame), the summed
-    overflow 0 at the sampled orbit steps, the ranks' frames equal, and the
-    assembled frame of the last sampled step against the single-device
-    render_stats of the same state.  One line a path; the band kernels'
-    launches go to the kernels line."""
+    """render_sharded's paths (BAND_PATHS_3 in 3 ranks, BAND_PATHS_4 in 4)
+    and the mesh paths (MESH_PATHS_3, MESH_PATHS_4) in the same spawns, the
+    ranks sharing this card through a gloo group, then dryrun_multichip(4):
+    each rank's launches (every kernel of the path launched once a frame),
+    the summed overflow 0 at every call, the ranks' frames equal, and the
+    last frames against the single-device render_stats of the same state
+    at the same clock (the staged frame for the triangle shards).  One line
+    a path; the band kernels' launches go to the kernels line, the mesh
+    paths' setup launches to its setup entries."""
     import torch
 
-    from d3d12_deferred_renderer_tpu_torch.parallel import run_bands
+    from d3d12_deferred_renderer_tpu_torch.parallel import dryrun, run_bands, sharded
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import run_calls
 
     scenes = {label: tp.arrays_from_state(c1_state0 if changes is None else state0)
               for label, changes, _ in BAND_PATHS_3 + BAND_PATHS_4}
     band_launches = {"raster_tiles": 0, "raster_depth": 0, "shade_tiles": 0, "fused_tiles": 0, "bump_tiles": 0}
-    for n, paths in ((3, BAND_PATHS_3), (4, BAND_PATHS_4)):
+    mesh_launches = {w: 0 for w in ("setup_triangles", "fused_tiles", "raster_depth", "setup_depth_triangles",
+                                    "raster_tiles", "shade_tiles", "bump_tiles")}
+    for n, paths, mpaths in ((3, BAND_PATHS_3, MESH_PATHS_3), (4, BAND_PATHS_4, MESH_PATHS_4)):
         t0 = time.perf_counter()
-        ranks = run_bands(n, bands_job, (scenes, paths), device="cuda", timeout_s=300.0)
+        calls = [(bands_job, (scenes, paths)), (mesh_paths_job, (tp.arrays_from_state(state0), mpaths))]
+        ranks = run_bands(n, run_calls, (calls,), device="cuda", timeout_s=420.0)
         spawn_s = time.perf_counter() - t0
         for k, (label, changes, contract) in enumerate(paths):
-            res = [r[k] for r in ranks]
+            res = [r[0][k] for r in ranks]
             cfg = band_path_config(tp, changes)
             frames = res[0]["frames"]
             expect = {w: 0 for w in res[0]["launches"]}
@@ -2114,10 +2223,69 @@ def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
                   "timing": "CUDA events around 10 frames of each rank, best of 2 passes; the ranks share "
                             "one card, so this shows correctness, not speed",
                   "spawn_and_run_seconds": spawn_s})
+        for k, (label, changes, entry, sizes, names, kw, n_frames) in enumerate(mpaths):
+            res = [r[1][k] for r in ranks]
+            cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, **changes)
+            rendered = res[0]["frames_rendered"]
+            expect = {w: 0 for w in res[0]["launches"]}
+            expect.update({w: c * rendered for w, c in MESH_PATH_LAUNCHES[label].items()})
+            for r in res:
+                check(r["launches"] == expect, f"mesh {label}: rank {r['rank']} launches {r['launches']}, "
+                                               f"expected {expect}")
+                check(r["overflow"] == res[0]["overflow"] and r["frames_sum"] == res[0]["frames_sum"],
+                      f"mesh {label}: ranks disagree")
+                for w in mesh_launches:
+                    mesh_launches[w] += r["launches"][w]
+            check(max(res[0]["overflow"]) == 0, f"mesh {label}: overflow {res[0]['overflow']}")
+            # The frames of the last call against one device at the same clocks.
+            single_cfg = cfg if entry == "frames" else dataclasses.replace(cfg, fused=False)
+            times = [float(t) for t in tp.parallel.animation_times(mesh_path_starts()[-1], n_frames, device=dev)]
+            got = torch.from_numpy(res[0]["frames"]).to(dev)
+            check(got.shape[0] == (1 if entry == "tri" else n_frames), f"mesh {label}: {got.shape[0]} frames")
+            worst = None
+            for i in range(got.shape[0]):
+                single, stats = tp.render_stats(sharded._with_time(state0, times[i]), single_cfg)
+                check(int(stats["overflow"]) == 0, f"mesh {label}: single-device overflow {int(stats['overflow'])}")
+                st = frame_stats(got[i], single)
+                check(st["max_u8"] <= 1 and st["frac_diff"] < 2e-3, f"mesh {label}: frame {i} vs single device: {st}")
+                worst = st if worst is None or st["frac_diff"] > worst["frac_diff"] else worst
+            emit({"phase": "bands", "ok": True, "path": label, "entry": entry, "ranks": n,
+                  "mesh": dict(zip(names, sizes)), "declared": list(names), "branch": res[0]["branch"],
+                  "resolution": f"{cfg.width}x{cfg.height}", "frames_a_call": n_frames,
+                  "frames_per_rank": rendered,
+                  "launches_per_rank": {w: c for w, c in res[0]["launches"].items() if c},
+                  "overflow_by_call": res[0]["overflow"], "vs_single_device_worst_frame": worst,
+                  "single_device": "staged (fused=False)" if entry != "frames" else "the config's own",
+                  "bytes_across_ranks_per_frame_by_rank": [r["bytes_per_frame"] for r in res],
+                  "ms_per_frame_by_rank": [min(r["ms_per_frame"]) for r in res],
+                  "host_ms_per_frame_by_rank": [min(r["host_ms_per_frame"]) for r in res],
+                  "timing": f"CUDA events around each of {MESH_CALLS - 1} calls, best, over the frames a rank "
+                            "renders a call; the ranks share one card, so this shows correctness, not speed",
+                  "spawn_and_run_seconds": spawn_s})
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(4, device="cuda", timeout_s=300.0)
+    for steps, launches in dry:
+        check(steps == ["staged", "kernels", "three_axis"], f"dryrun steps {steps}")
+        for w in mesh_launches:
+            mesh_launches[w] += launches[w]
+    check(all(d[1]["fused_tiles"] > 0 for d in dry), "dryrun: the kernel step never launched the fused kernel")
+    emit({"phase": "bands", "ok": True, "path": "dryrun_multichip", "ranks": 4, "steps": dry[0][0],
+          "launches_by_rank": [{w: c for w, c in d[1].items() if c} for d in dry],
+          "spawn_and_run_seconds": time.perf_counter() - t0})
     for key, w in (("k6_band", "raster_tiles"), ("k3_band", "raster_depth"), ("k7_band", "shade_tiles"),
                    ("k2_band", "fused_tiles"), ("k8_band", "bump_tiles")):
         kernels[key]["launches"] = band_launches[w]
         check(band_launches[w] > 0, f"{w} never launched on the band paths")
+    # The mesh paths' and the dry run's launches: K6, K7, K8 and K2 on bands
+    # and composited sub-bands; K1, and with shadows K4 and K3, on the whole
+    # stream and the whole shadow map.
+    for key, w in (("k6_band", "raster_tiles"), ("k7_band", "shade_tiles"), ("k8_band", "bump_tiles"),
+                   ("k2_band", "fused_tiles"), ("setup", "setup_triangles"),
+                   ("setup_depth", "setup_depth_triangles"), ("raster_depth", "raster_depth")):
+        kernels[key]["launches"] += mesh_launches[w]
+    for w, c in mesh_launches.items():
+        check(c > 0, f"{w} never launched on the mesh paths and the dry run")
+    emit({"phase": "mesh_paths_launches", "ok": True, "launches": mesh_launches})
 
 
 def time_staged(root: str, passes: int = 3) -> int:

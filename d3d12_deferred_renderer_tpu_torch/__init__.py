@@ -12,7 +12,10 @@ takes per-tile lists from a depth prepass, and takes shadows as a
 visibility plane or through the deferred-directional split.  calibrate
 derives a scene's capacity budgets.  parallel.render_sharded renders a
 frame as row bands over a torch.distributed group (make_rows_group joins
-one; parallel.run_bands runs N ranks on one host).  render_batch renders N
+one; parallel.run_bands runs N ranks on one host); parallel.make_mesh lays
+the group out on named axes for render_tri_sharded (triangle shards
+composited sort-last) and the batch entry points, and parallel.dryrun
+holds each composition to the single-device frame.  render_batch renders N
 consecutive frames and cfg.supersample box-averages an s-times frame.  The
 application path: runtime.App (the frame loop with the triple-buffered
 PresentQueue or the DeltaPresentQueue), runtime.NativeFrameSink and

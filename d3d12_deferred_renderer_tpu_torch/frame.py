@@ -60,7 +60,7 @@ def _fused_eligible(cfg: RendererConfig) -> bool:
 # holds them.
 _NOT_PORTED = (
     (lambda c: c.shadows and c.shadow_window_gather,
-     "the shadow window gather (off in the JAX package, its measured loss; item 9)"),
+     "the shadow window gather (off in the JAX package, its measured loss; item 3)"),
 )
 
 
@@ -201,10 +201,14 @@ def step_frame(state: SceneState, cfg: RendererConfig) -> Tuple[SceneState, torc
 def render_batch(state: SceneState, cfg: RendererConfig, num_frames: int):
     """`num_frames` consecutive animated frames -> (final state, uint8
     [num_frames, H, W, 3]): step_frame in a loop on the state's device, the
-    frames stacked (JAX scans step_frame inside one jitted program)."""
+    frames stacked (JAX scans step_frame inside one jitted program).  With
+    num_frames 0 the state comes back as it was, with an empty [0, H, W, 3]
+    batch, as JAX's scan of length 0 returns."""
     frames = []
     for _ in range(num_frames):
         state, frame = step_frame(state, cfg)
         frames.append(frame)
+    if not frames:
+        return state, torch.empty((0, cfg.height, cfg.width, 3), dtype=torch.uint8, device=state.time.device)
     return state, torch.stack(frames)
 

@@ -165,11 +165,15 @@ def _finish(radiance, d, gb, cfg):
 def shade_pbr(
     gb: GBuffer, lights: Lights, cfg: RendererConfig, view_proj: torch.Tensor,
     eye: torch.Tensor, shadow_visibility: Optional[torch.Tensor] = None,
+    y_offset: int = 0, full_height: Optional[int] = None,
 ) -> torch.Tensor:
     """Unculled PBR shading (every light at every pixel) -> linear HDR
-    [H, W, 3]: the exact baseline the tiled paths are held to."""
+    [H, W, 3]: the exact baseline the tiled paths are held to.  With
+    y_offset / full_height the G-buffer holds rows y_offset.. of a frame
+    full_height rows high (a band)."""
     d = decode_gbuffer(gb, cfg)
-    world, v, radiance = _directional(gb, d, lights, cfg, view_proj, eye, shadow_visibility, None)
+    world, v, radiance = _directional(gb, d, lights, cfg, view_proj, eye, shadow_visibility, None,
+                                      y_offset, full_height)
     for i in range(lights.num_point):
         radiance = radiance + _light_contrib(
             world, d.normal, v, d, lights.point_position[i], lights.point_color[i],

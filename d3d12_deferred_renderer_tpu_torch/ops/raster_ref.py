@@ -122,3 +122,8 @@ def rasterize_packed(packed: torch.Tensor, height: int, width: int, y_offset: in
         uv=uv.T.reshape(height, width, 2),
         mesh_id=mesh_id.reshape(height, width),
     )
+
+
+def rasterize(tris, cfg) -> FragmentPlanes:
+    """The whole frame of a TriSetup's records on cfg's width x height grid."""
+    return rasterize_packed(tris.packed, cfg.height, cfg.width)

@@ -41,17 +41,22 @@ def _outputs(pos_cols, tri_mesh_id, mvp, cull, **extra):
 
 def setup_triangles(
     pos_cols, nrm_cols, uv_cols, tri_mesh_id, mvp, model, width, height,
-    cull="back",
+    cull="back", near_clip=True,
 ) -> TriSetup:
     """Setup records [2T, 32], AABBs [2T, 4] and valid [2T] of T triangles.
 
     pos_cols/nrm_cols [3, 3, T], uv_cols [3, 2, T] f32 face-vertex columns,
-    tri_mesh_id [T] int32 in [0, M), mvp/model [M, 4, 4] f32."""
+    tri_mesh_id [T] int32 in [0, M), mvp/model [M, 4, 4] f32.  near_clip=False
+    (T unclipped records) exists only in the plain version: on CUDA tensors
+    it raises ValueError."""
     if pos_cols.device.type == "cpu":
         return setup_triangles_reference(
             pos_cols, nrm_cols, uv_cols, tri_mesh_id, mvp, model, width, height,
-            cull=cull,
+            cull=cull, near_clip=near_clip,
         )
+    if not near_clip:
+        raise ValueError("the setup kernel always clips at the near plane: near_clip=False runs only on "
+                         "CPU tensors (the plain version)")
     T, M = tri_mesh_id.shape[0], mvp.shape[0]
     out = _outputs(pos_cols, tri_mesh_id, mvp, cull, nrm_cols=(nrm_cols, (3, 3, T)),
                    uv_cols=(uv_cols, (3, 2, T)), model=(model, (M, 4, 4)))

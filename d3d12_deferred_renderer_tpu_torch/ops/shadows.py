@@ -70,7 +70,7 @@ def light_view_proj(light_direction: torch.Tensor, center=(0.0, 0.0, 0.0),
     along the light direction; the up vector is +x where the light is
     within ~8 degrees of vertical (a tensor select: no host branch)."""
     center, x_axis, y_axis, proj = _light_constants(tuple(center), extent, distance, light_direction.device)
-    d = light_direction / xmath._norm3(light_direction)
+    d = xmath.normalize(light_direction)
     eye = center - d * distance
     up = torch.where(torch.abs(d[1]) > 0.99, x_axis, y_axis)
     return xmath.matmul4_fma(xmath.look_at_lh(eye, center, up), proj)

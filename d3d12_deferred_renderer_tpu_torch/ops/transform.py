@@ -143,15 +143,20 @@ def _clip_near_plane_stack(c, n, uv):
     return clip_attr(c), clip_attr(n), clip_attr(uv)
 
 
-def _setup_cols(c, n, uv, tri_mesh_id, width, height, cull="back"):
+def _setup_cols(c, n, uv, tri_mesh_id, width, height, cull="back", near_clip=True):
     """Near clip, viewport, cull, canonical winding and record packing over
     stacked columns: c [3, 4, T], n [3, 3, T], uv [3, 2, T].  With n and uv
-    None (depth-only passes: the shadow map) record fields 12-26 are zero."""
+    None (depth-only passes: the shadow map) record fields 12-26 are zero.
+    near_clip=False skips the clip: T records instead of 2T (the JAX
+    package's XLA setup takes it; the kernels always clip)."""
     if cull not in CULL_MODES:
         raise ValueError(f"unknown cull mode {cull!r}")
     W, H = width, height
-    c, n, uv = _clip_near_plane_stack(c, n, uv)
-    mesh_id = tri_mesh_id.repeat_interleave(2)
+    if near_clip:
+        c, n, uv = _clip_near_plane_stack(c, n, uv)
+        mesh_id = tri_mesh_id.repeat_interleave(2)
+    else:
+        mesh_id = tri_mesh_id
 
     w = c[:, 3]  # [3, 2T]
     w_ok = (w[0] > 1e-6) & (w[1] > 1e-6) & (w[2] > 1e-6)
@@ -205,11 +210,13 @@ def _setup_cols(c, n, uv, tri_mesh_id, width, height, cull="back"):
 
 def setup_triangles_reference(
     pos_cols, nrm_cols, uv_cols, tri_mesh_id, mvp, model, width, height,
-    cull="back",
+    cull="back", near_clip=True,
 ) -> TriSetup:
-    """Plain PyTorch version of the setup kernel: same inputs, same records."""
+    """Plain PyTorch version of the setup kernel: same inputs, same records
+    (with near_clip=False, the unclipped records the kernel has no mode
+    for)."""
     c, n = _fv_transform_cols(pos_cols, nrm_cols, tri_mesh_id, mvp, model)
-    return _setup_cols(c, n, uv_cols, tri_mesh_id, width, height, cull)
+    return _setup_cols(c, n, uv_cols, tri_mesh_id, width, height, cull, near_clip)
 
 
 def setup_depth_reference(pos_cols, tri_mesh_id, mvp, width, height, cull="none") -> TriSetup:
@@ -229,16 +236,27 @@ def frame_matrices(state: SceneState, cfg: RendererConfig):
 
 
 def setup_frame_triangles(
-    state: SceneState, cfg: RendererConfig, cull: str = "back"
+    state: SceneState, cfg: RendererConfig, cull: str = "back",
+    front_ccw: bool = True, near_clip: bool = True,
 ):
     """Vertex transform + triangle setup -> (TriSetup, view_proj), through
-    the setup kernel's wrapper."""
+    the setup kernel's wrapper.
+
+    front_ccw=False makes clockwise triangles the front faces.  The kernel
+    and its plain version fix counter-clockwise as the front; a valid
+    triangle has a non-zero area, so the other winding is the same records
+    with cull "back" and "front" swapped ("none" culls neither and keeps
+    its records as they are).  near_clip=False (the unclipped records of
+    the JAX package's XLA setup) runs the plain version on CPU tensors; the
+    kernel always clips, so on the card it raises ValueError."""
     from .setup_cuda import setup_triangles
 
+    if not front_ccw:
+        cull = {"back": "front", "front": "back"}.get(cull, cull)
     model, view_proj, mvp = frame_matrices(state, cfg)
     geo = state.geometry
     tris = setup_triangles(
         geo.fv_pos_cols, geo.fv_nrm_cols, geo.fv_uv_cols, geo.tri_mesh_id,
-        mvp, model, cfg.width, cfg.height, cull=cull,
+        mvp, model, cfg.width, cfg.height, cull=cull, near_clip=near_clip,
     )
     return tris, view_proj

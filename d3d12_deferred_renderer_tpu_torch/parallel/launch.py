@@ -1,20 +1,26 @@
-"""Run N band ranks of the screen-row band path on one host.
+"""Run N ranks of the multi-device paths on one host.
 
 ``run_bands(n, job, args, device)`` spawns n processes (torch.multiprocessing,
 spawn method; on the card unless the caller passes device="cpu"), joins
-them in one rows group (mesh.make_rows_group, at a free localhost port)
-and runs ``job(device, *args)`` in each, the rank's device first; it
-returns each rank's result in rank order.  A job returns host objects
-(numpy arrays, numbers): results come back pickled.  A spawned rank
-imports the module that defines its job, so a job lives in a module that
-imports no JAX (this one, or the script that runs the ranks).
+them in one group (mesh.make_rows_group, at a free localhost port) and
+runs ``job(device, *args)`` in each, the rank's device first; it returns
+each rank's result in rank order.  A job that needs more axes than the row
+bands lays the group out with mesh.make_mesh itself.  A job returns host
+objects (numpy arrays, numbers): results come back pickled.  A spawned
+rank imports the module that defines its job, so a job lives in a module
+that imports no JAX (this one, parallel/dryrun.py, or the script that runs
+the ranks).
 
 Every wait has a deadline: a rank that raises, dies or is still running
 when ``timeout_s`` has passed fails the call, and every rank still alive
 is killed before it returns.
 
-``sharded_frames`` is the job the tests run: parallel/sharded.render_sharded
-of scenes carried as convert.py's arrays.
+The jobs the tests run, each on scenes carried as convert.py's arrays:
+``sharded_frames`` (render_sharded), ``mesh_frames`` (render_tri_sharded and
+the two batch entry points on a mesh of the job's axes) and ``tri_planes``
+(the triangle shards' composited fragment planes); ``mesh_lines`` reports a
+mesh's axis groups, ``run_calls`` runs several jobs in one group and
+``counted`` a job with the kernels' launch counts.
 """
 from __future__ import annotations
 
@@ -113,3 +119,84 @@ def sharded_frames(device, scenes):
         frame, stats = render_sharded(scene_from_arrays(arrays, device), cfg, return_stats=True)
         out.append((frame.cpu().numpy(), int(stats["overflow"])))
     return out
+
+
+def mesh_frames(device, items):
+    """The mesh job of the tests: each (arrays, cfg, axis sizes, axis names,
+    entry, keywords) in turn on a mesh of those axes, entry "tri"
+    (render_tri_sharded), "frames" (render_frames_batch_sharded) or
+    "tri_frames" (render_frames_batch_tri_sharded); a batch entry's clocks
+    come as keywords["times"], a list of floats -> [(uint8 frame [H, W, 3]
+    or batch [B, H, W, 3] as numpy, summed overflow), ...]."""
+    from ..convert import scene_from_arrays
+    from . import sharded
+    from .mesh import make_mesh
+
+    entries = {"tri": sharded.render_tri_sharded, "frames": sharded.render_frames_batch_sharded,
+               "tri_frames": sharded.render_frames_batch_tri_sharded}
+    out = []
+    for arrays, cfg, sizes, names, entry, kw in items:
+        mesh = make_mesh(sizes, names)
+        state = scene_from_arrays(arrays, device)
+        kw = dict(kw)
+        times = kw.pop("times", None)
+        args = (state, cfg, mesh) if times is None else (
+            state, torch.tensor(times, dtype=torch.float32, device=device), cfg, mesh)
+        frames, stats = entries[entry](*args, return_stats=True, **kw)
+        out.append((frames.cpu().numpy(), int(stats["overflow"])))
+    return out
+
+
+def tri_planes(device, items):
+    """The composited fragment planes of the triangle shards: each (arrays,
+    cfg, axis sizes, axis names, tri axis, rows axis) -> [H, W, 7] float32
+    numpy (depth, normal xyz, u, v, mesh id; sharded._stack_planes), every
+    rank's sub-band gathered in band order."""
+    from ..convert import scene_from_arrays
+    from . import sharded
+    from .mesh import make_mesh
+
+    out = []
+    for arrays, cfg, sizes, names, tri_axis, rows_axis in items:
+        plan = sharded._tri_plan(cfg, make_mesh(sizes, names), tri_axis, rows_axis)
+        _, _, merged = sharded._render_tri_band(scene_from_arrays(arrays, device), cfg, plan)
+        out.append(plan.axes.all_gather_tiled(sharded._stack_planes(merged)).cpu().numpy())
+    return out
+
+
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port; each counts its kernel's launches
+    in its ``launches`` attribute."""
+    from ..ops import bump, fused, lighting_cuda, raster_tiles, scatter, setup_cuda
+
+    return (setup_cuda.setup_triangles, fused.fused_tiles, raster_tiles.raster_tiles, lighting_cuda.shade_tiles,
+            setup_cuda.setup_depth_triangles, raster_tiles.raster_depth, bump.bump_tiles,
+            fused.directional_resolve, scatter.row_scatter)
+
+
+def counted(device, job, args=()):
+    """job(device, *args) with every kernel's launch count set to 0 just
+    before it and read just after -> (its result, {wrapper: launches})."""
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    out = job(device, *args)
+    return out, {w.__name__: w.launches for w in wrappers}
+
+
+def run_calls(device, calls):
+    """Several jobs in one group of ranks: each (job, args) in turn ->
+    [job(device, *args), ...]."""
+    return [job(device, *args) for job, args in calls]
+
+
+def mesh_lines(device, sizes, names):
+    """This rank's coordinates on make_mesh(sizes, names) and, for each
+    axis, the ranks of its line as the axis group gathers them -> (coords,
+    {name: [rank, ...]})."""
+    from .mesh import make_mesh
+    from .sharded import BandGroup
+
+    mesh = make_mesh(sizes, names)
+    me = torch.tensor([dist.get_rank()], device=device)
+    return mesh.coords, {n: BandGroup.of_axis(mesh, n).all_gather_tiled(me).tolist() for n in names}

@@ -111,18 +111,23 @@ class DeltaPresentQueue:
     once `depth` frames are in flight; present_next / drain download in
     order), but each present moves only the speculative prefix of changed
     tiles or pixels.  `bytes_transferred` / `bytes_full` expose the savings.
-    close() (or the context manager) shuts the decode worker down."""
+    With threaded=False there is no worker: present_next waits for the
+    buffer and decodes on the caller's thread (the same frames and
+    counters).  close() (or the context manager) shuts the decode worker
+    down."""
 
     _SHRINK_RUN = 16
 
     def __init__(
         self, height: int, width: int, depth: int = 3,
         tile_h: int = 8, tile_w: int = 64, channels: int = 3, pixel_level: bool = True,
+        threaded: bool = True,
     ):
         if depth < 1:
             raise ValueError("depth must be >= 1")
         # ONE worker so presents stay FIFO (the host mirror chains).
-        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pool = ThreadPoolExecutor(max_workers=1) if threaded else None
+        self._closed = False
         self.depth = depth
         self.th = _pick_tile(height, tile_h)
         self.tw = _pick_tile(width, tile_w)
@@ -193,7 +198,12 @@ class DeltaPresentQueue:
         buf, order = _pack(self._prev_tiles, t_new, self.C, cap, px_cap)
         self._prev_tiles = t_new
         job = (cap, px_cap, start_host_copy(buf), order, t_new)
-        self._queue.append(self._pool.submit(self._present_job, job))
+        if self._pool is None:
+            if self._closed:
+                raise RuntimeError("push after close()")
+            self._queue.append(job)
+        else:
+            self._queue.append(self._pool.submit(self._present_job, job))
         if len(self._queue) > self.depth:
             return self.present_next()
         return None
@@ -201,7 +211,8 @@ class DeltaPresentQueue:
     def present_next(self) -> Optional[np.ndarray]:
         if not self._queue:
             return None
-        return self._consume(self._queue.popleft().result())
+        item = self._queue.popleft()
+        return self._consume(item.result() if self._pool is not None else self._present_job(item))
 
     def _present_job(self, job):
         """Wait for ONE present's buffer and decode it into the host mirror;
@@ -296,6 +307,9 @@ class DeltaPresentQueue:
         frames still in flight are dropped, and an exception raised by
         their decode is raised here.  Idempotent."""
         pending, self._queue = self._queue, deque()
+        self._closed = True
+        if self._pool is None:
+            return
         self._pool.shutdown(wait=True, cancel_futures=True)
         for fut in pending:
             if not fut.cancelled():

@@ -157,6 +157,18 @@ class SceneState:
     time: torch.Tensor         # [] f32 animation clock
 
 
+def default_transforms(num_meshes: int) -> tuple:
+    """Reference placement: mesh i at x = -2 + 2 i, unit scale
+    (main.cpp:888-890).  Numpy arrays (position, orientation, scale)."""
+    pos = np.zeros((num_meshes, 3), np.float32)
+    pos[:, 0] = -2.0 + 2.0 * np.arange(num_meshes)
+    return (
+        pos,
+        np.zeros((num_meshes, 3), np.float32),
+        np.ones((num_meshes, 3), np.float32),
+    )
+
+
 def grid_transforms(num_meshes: int, cols: int = 6, spacing: float = 1.6) -> tuple:
     """Benchmark placement: meshes on a grid centered at the origin (the first
     mesh, the ground plane, stays at the origin).  Numpy arrays."""
@@ -184,9 +196,7 @@ def make_scene(
     device = _dev(device)
     m = geo.num_meshes
     if placement == "reference":
-        pos = np.zeros((m, 3), np.float32)
-        pos[:, 0] = -2.0 + 2.0 * np.arange(m)  # main.cpp:888-890
-        orient, scale = np.zeros((m, 3), np.float32), np.ones((m, 3), np.float32)
+        pos, orient, scale = default_transforms(m)
     elif placement == "grid":
         pos, orient, scale = grid_transforms(m)
     elif placement == "origin":

@@ -28,6 +28,9 @@ __all__ = [
     "scaling",
     "translation",
     "model_matrix",
+    "transform_points",
+    "transform_vectors",
+    "normalize",
     "normalize_safe",
     "matmul4",
     "matmul4_fma",
@@ -105,20 +108,32 @@ def divf(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
-def _norm3(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean length over the last axis (length 3), rounded as XLA
-    rounds jnp.linalg.norm: its reduction contracts into fused multiply-adds,
-    sqrt(fma(z, z, fma(y, y, x * x))), and the square root is correctly
-    rounded (taken in float64: torch's float32 sqrt on the CPU is not
-    always)."""
-    x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    return torch.sqrt(fma(z, z, fma(y, y, x * x)).double()).float()[..., None]
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean length over the last axis -> [..., 1], rounded as XLA
+    rounds jnp.linalg.norm: its reduction contracts into fused multiply-adds
+    in order (for 3: sqrt(fma(z, z, fma(y, y, x * x)))), and the square root
+    is correctly rounded (taken in float64: torch's float32 sqrt on the CPU
+    is not always)."""
+    acc = v[..., 0] * v[..., 0]
+    for k in range(1, v.shape[-1]):
+        acc = fma(v[..., k], v[..., k], acc)
+    return torch.sqrt(acc.double()).float()[..., None]
+
+
+def normalize(v: torch.Tensor, axis: int = -1, eps: float = 0.0) -> torch.Tensor:
+    """v over its length along `axis` (XMVector3Normalize for a non-zero
+    vector); with eps > 0 the length is taken as at least eps."""
+    x = v.movedim(axis, -1)
+    n = _norm(x)
+    if eps:
+        n = torch.clamp(n, min=eps)
+    return (x / n).movedim(-1, axis)
 
 
 def normalize_safe(v: torch.Tensor) -> torch.Tensor:
-    """Zero-guarded normalize over the last axis (length 3): a zero vector
-    passes through unchanged."""
-    n = _norm3(v)
+    """Zero-guarded normalize over the last axis: a zero vector passes
+    through unchanged."""
+    n = _norm(v)
     return v / torch.where(n == 0.0, torch.ones_like(n), n)
 
 
@@ -206,3 +221,29 @@ def model_matrix(position, orientation, scale) -> torch.Tensor:
     )
     t = translation(position[..., 0], position[..., 1], position[..., 2])
     return matmul4(matmul4(s, r), t)
+
+
+def _row_transform(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Row vectors v [..., K] times m [..., K, N]: the first product, then
+    one fused multiply-add per further term (see matmul4_fma), the same
+    bits on every device.  XLA's CPU dot rounds a batched product so; an
+    unbatched one it sums in pairs, a few ULP away."""
+    acc = v[..., 0, None] * m[..., 0, :]
+    for k in range(1, v.shape[-1]):
+        acc = fma(v[..., k, None], m[..., k, :], acc)
+    return acc
+
+
+def transform_points(points: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Row-vector point transform (p, 1) @ M -> homogeneous [..., 4]
+    (geometry.hlsl:32-34 with the composed matrix): points [..., 3], m
+    [..., 4, 4] broadcastable against the batch axes."""
+    p = torch.cat([points, torch.ones_like(points[..., :1])], -1)
+    return _row_transform(p, m)
+
+
+def transform_vectors(vectors: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Row-vector direction transform (v, 0) @ M -> [..., 3] (geometry.hlsl:37).
+    The reference transforms normals with the model matrix itself, not its
+    inverse transpose: a fidelity quirk the renderer keeps."""
+    return _row_transform(vectors, m[..., :3, :3])

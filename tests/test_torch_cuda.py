@@ -94,6 +94,33 @@ def test_setup_kernel_matches_plain(case, cull):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cull", ["back", "front", "none"])
+def test_setup_kernel_clockwise_front_matches_the_cpu_setup(cull):
+    """setup_frame_triangles(front_ccw=False) on the card (K1, with cull
+    "back" and "front" swapped in the wrapper) against the same call on a
+    CPU copy of the state (the plain version, bit-equal to JAX's setup:
+    tests/test_torch_setup.py): records, boxes and valid flags bit-equal.
+    near_clip=False, which the kernel has no mode for, is refused."""
+    dev = _cuda()
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=384)
+    state = _scene(cfg, dev)
+    cpu_state = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
+    assert torch.equal(frame_matrices(state, cfg)[2].cpu().view(torch.int32),
+                       frame_matrices(cpu_state, cfg)[2].view(torch.int32))
+    before = setup_cuda.setup_triangles.launches
+    got, _ = setup_frame_triangles(state, cfg, cull=cull, front_ccw=False)
+    torch.cuda.synchronize()
+    assert setup_cuda.setup_triangles.launches == before + 1
+    ref, _ = setup_frame_triangles(cpu_state, cfg, cull=cull, front_ccw=False)
+    assert torch.equal(got.packed.cpu().view(torch.int32), ref.packed.view(torch.int32))
+    assert torch.equal(got.aabb.cpu().view(torch.int32), ref.aabb.view(torch.int32))
+    assert torch.equal(got.valid.cpu(), ref.valid)
+    assert int(ref.valid.sum()) > 0
+    with pytest.raises(ValueError, match="near_clip"):
+        setup_frame_triangles(state, cfg, near_clip=False)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["K1", "K4"])
 def test_setup_kernel_is_one_launch(kernel):
     """A setup call launches its kernel once and nothing else: the kernel
@@ -938,6 +965,37 @@ def test_render_sharded_two_ranks_share_the_card(config):
     for (frame, overflow), in ranks:
         assert overflow == int(sstats["overflow"]) == 0
         assert _close_u8(torch.from_numpy(frame).to(dev, torch.int32), single.to(torch.int32), 2e-3)
+
+
+@pytest.mark.cuda
+def test_render_tri_sharded_two_ranks_share_the_card():
+    """render_tri_sharded in 2 ranks sharing the card (gloo) on the staged
+    config 4 at 256x64: each rank's slice through K6, the composite, K8 on
+    its 32-row composited sub-band, the shadow map (K4, K3) and K7, once
+    each; the composited planes bit-equal (int32 views: the depth's sign of
+    zero too) to the single-device tile raster's, the frame within 1 u8 on
+    < 0.2% of the single-device staged frame, overflow 0 summed."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import run_bands, sharded
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import counted, mesh_frames, run_calls, tri_planes
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CONFIG4, fused=False)
+    state = _scene(cfg, dev)
+    arrays = tp.arrays_from_state(state)
+    calls = [(counted, (mesh_frames, ([(arrays, cfg, (2,), ("tri",), "tri", {})],))),
+             (tri_planes, ([(arrays, cfg, (2,), ("tri",), "tri", None)],))]
+    ranks = run_bands(2, run_calls, (calls,), timeout_s=300.0)
+    single, sstats = tp.render_stats(state, cfg)
+    tris, _ = setup_frame_triangles(state, cfg)
+    ref = sharded._stack_planes(raster_tiles.rasterize_binned(tris.packed, tris.aabb, tris.valid, cfg)).cpu()
+    for ((frames, launches), (planes,)) in ranks:
+        ((frame, overflow),) = frames
+        assert overflow == int(sstats["overflow"]) == 0
+        assert _close_u8(torch.from_numpy(frame).to(dev, torch.int32), single.to(torch.int32), 2e-3)
+        assert {w: c for w, c in launches.items() if c} == {
+            "setup_triangles": 1, "raster_tiles": 1, "bump_tiles": 1, "setup_depth_triangles": 1,
+            "raster_depth": 1, "shade_tiles": 1}
+        assert torch.equal(torch.from_numpy(planes).view(torch.int32), ref.view(torch.int32))
 
 
 # ---- the application path (runtime/, render_batch, supersampling) ----

@@ -233,6 +233,33 @@ def _frame_sequence():
 
 
 @pytest.mark.parametrize("depth", [1, 3])
+def test_unthreaded_queue_equals_threaded(depth):
+    """threaded=False decodes on the caller's thread at present (JAX's
+    unthreaded queue): the same frames, bytes and misses as the worker's,
+    over a sequence that walks both wire modes and every miss."""
+    frames = _frame_sequence()
+    tq, uq = DeltaPresentQueue(32, 128, depth=depth), DeltaPresentQueue(32, 128, depth=depth, threaded=False)
+    assert uq._pool is None
+    outs = []
+    for f in frames:
+        a, b = tq.push(torch.from_numpy(f)), uq.push(torch.from_numpy(f))
+        assert (a is None) == (b is None)
+        if a is not None:
+            outs.append((a, b))
+    outs.extend(zip(tq.drain(), uq.drain()))
+    assert len(outs) == len(frames)
+    for f, (a, b) in zip(frames, outs):
+        np.testing.assert_array_equal(b, a)
+        np.testing.assert_array_equal(b, f)
+    assert (uq.bytes_transferred, uq.transfer_misses, uq.bytes_full) == (
+        tq.bytes_transferred, tq.transfer_misses, tq.bytes_full)
+    tq.close()
+    uq.close()
+    with pytest.raises(RuntimeError):
+        uq.push(torch.from_numpy(frames[0]))
+
+
+@pytest.mark.parametrize("depth", [1, 3])
 def test_delta_matches_jax(depth):
     frames = _frame_sequence()
     jq, q = JaxDeltaPresentQueue(32, 128, depth=depth), DeltaPresentQueue(32, 128, depth=depth)

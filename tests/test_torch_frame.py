@@ -156,6 +156,7 @@ def test_port_imports_no_jax():
         "d3d12_deferred_renderer_tpu_torch.models.obj, "
         "d3d12_deferred_renderer_tpu_torch.parallel, "
         "d3d12_deferred_renderer_tpu_torch.parallel.launch, "
+        "d3d12_deferred_renderer_tpu_torch.parallel.dryrun, "
         "d3d12_deferred_renderer_tpu_torch.runtime, "
         "d3d12_deferred_renderer_tpu_torch.scene_io, "
         "d3d12_deferred_renderer_tpu_torch.utils.debug, "

@@ -162,6 +162,20 @@ def test_tiled_equals_unculled(scene):
                                tl.shade_pbr(*args).numpy(), rtol=1e-4, atol=1e-5)
 
 
+def test_shade_pbr_band_matches_jax(scene):
+    """shade_pbr with y_offset / full_height: rows 16-47 of the frame as a
+    band, against JAX's band (TOL) and the same rows of the port's whole
+    frame (bit for bit)."""
+    jli, tli = _lights()
+    band = lambda g: type(g)(*(a[16:48] for a in g))  # noqa: E731
+    ref = jl.shade_pbr(band(scene["jg"]), jli, CFG, scene["vp"], scene["eye"], y_offset=16, full_height=64)
+    got = tl.shade_pbr(band(scene["tg"]), tli, TCFG, scene["tvp"], scene["teye"], y_offset=16, full_height=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    whole = tl.shade_pbr(scene["tg"], tli, TCFG, scene["tvp"], scene["teye"])
+    assert torch.equal(got, whole[16:48])
+    assert float(got.max()) > 0.0
+
+
 @pytest.mark.parametrize("tile,cap,radius", [
     (32, 64, 3.0), ((8, 128), 32, 3.0), ((8, 128), 4, 6.0),
 ], ids=["square32", "8x128", "overflow"])

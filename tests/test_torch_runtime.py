@@ -64,6 +64,21 @@ def test_render_batch_and_supersample_match_jax():
     assert (jframes.max(-1) > 0).mean() > 0.01  # not blank
 
 
+def test_render_batch_of_no_frames_matches_jax():
+    """render_batch(state, cfg, 0): the state as it was and an empty uint8
+    [0, H, W, 3] batch on the state's device, as JAX's scan of length 0
+    returns."""
+    jcfg = dxr.RendererConfig(width=96, height=48, use_pallas=False)
+    jgeo = dxr.build_scene_geometry([dxr.load_obj(os.path.join(ASSETS, "cube.obj"), prefer_native=False)])
+    jstate = dxr.make_scene(jgeo, jcfg)
+    jfinal, jframes = dxr.render_batch(jstate, jcfg, 0)
+    pstate = tp.scene_from_arrays(tp.arrays_from_state(jstate), device="cpu")
+    pfinal, pframes = tp.render_batch(pstate, tp.RendererConfig(**dataclasses.asdict(jcfg)), 0)
+    assert tuple(pframes.shape) == np.asarray(jframes).shape == (0, 48, 96, 3)
+    assert pframes.dtype == torch.uint8 and pframes.device == pstate.time.device
+    assert pfinal is pstate and float(pfinal.time) == float(jfinal.time)
+
+
 RENDER_CASES = {
     "reference_raster": CFG,
     "tile_raster": dataclasses.replace(CFG, use_pallas=True),

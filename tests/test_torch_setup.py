@@ -96,6 +96,39 @@ def test_near_clip_case_clips(pairs):
     np.testing.assert_array_equal(got.valid.numpy()[1::2], np.asarray(ref.valid)[1::2])
 
 
+@pytest.mark.parametrize("front_ccw", [True, False], ids=["ccw", "cw"])
+@pytest.mark.parametrize("cull", ["back", "front", "none"])
+def test_winding_matches_jax_bit_for_bit(cull, front_ccw):
+    """setup_frame_triangles(front_ccw=False) maps to the kernel's fixed
+    counter-clockwise winding by swapping cull "back" and "front" ("none"
+    unchanged): records, boxes and valid flags bit-equal (int32 views) to
+    JAX's setup run op by op, for every cull mode and both windings."""
+    cfg = dxr.RendererConfig(width=128, height=64)
+    state = dxr.animate(_benchmark(cfg))
+    ref, _ = jax_setup(state, cfg, cull=cull, front_ccw=front_ccw)
+    got, _ = setup_frame_triangles(tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu"),
+                                   tp.RendererConfig(**dataclasses.asdict(cfg)), cull=cull, front_ccw=front_ccw)
+    np.testing.assert_array_equal(got.packed.numpy().view(np.int32), np.asarray(ref.packed).view(np.int32))
+    np.testing.assert_array_equal(got.aabb.numpy().view(np.int32), np.asarray(ref.aabb).view(np.int32))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    assert 0 < int(got.valid.sum()) < got.valid.numel()
+
+
+def test_unclipped_setup_matches_jax_on_the_cpu():
+    """near_clip=False: T unclipped records (the JAX package's XLA setup
+    only), bit-equal to JAX's on the near-clip scene, through the plain
+    version; the kernel has no such mode, so CUDA tensors are refused."""
+    cfg, build, _, _ = CASES["near_clip"]
+    state = dxr.animate(build(cfg))
+    ref, _ = jax_setup(state, cfg, near_clip=False)
+    pstate = tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu")
+    got, _ = setup_frame_triangles(pstate, tp.RendererConfig(**dataclasses.asdict(cfg)), near_clip=False)
+    assert got.packed.shape[0] == pstate.geometry.tri_mesh_id.shape[0]
+    np.testing.assert_array_equal(got.packed.numpy().view(np.int32), np.asarray(ref.packed).view(np.int32))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    assert int(got.valid.sum()) > 0
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     """On CPU tensors the kernel wrapper returns the plain version's records
     and launches nothing."""
