@@ -115,7 +115,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              within 1 u8 of its plain chain's; a checkpoint saved mid-orbit
              and loaded onto the card resumes bit-exactly; one frame under
              debug_layer raises nothing.  One line a part.
-20. bands — the screen-row band path.  bands_kernels: K6, K3, K7, K2 and
+20. window — the window-gather PCF (shadow_window_gather) on the three
+             config-4 paths (fused split, fused unsplit, staged; the
+             flagship scene, 1024^2 map): at every 4th step of the 64-step
+             orbit step_frame with the flag equal (torch.equal) to
+             step_frame without it, overflow 0; the largest bad-quad count
+             beside the automatic cap; the last frame's visibility on the
+             card bit-equal to the quad path's (and on the split path to
+             the CPU's); overflow
+             >= 1 at shadow_bad_quads_cap 8; ms/frame, CUDA launches and
+             device busy ms a frame, and shadow_visibility's graph-replayed
+             device ms, flag on beside flag off.  One line a path.
+21. bands — the screen-row band path.  bands_kernels: K6, K3, K7, K2 and
              K8 on the middle band of 3 (rows 360-719) and K6, K3 and K7 on
              the second band of 4 (rows 270-539: a padded last tile row) of
              the flagship frame, against their plain versions on the same
@@ -206,6 +217,14 @@ def emit(obj) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def card_name_and_limit() -> str:
+    """The first card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1689,6 +1708,12 @@ def main() -> int:
     for k, n in app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers).items():
         total_launches[k] += n
     emit({"phase": "app_done", "seconds": time.perf_counter() - t_app})
+
+    # ---- 20. window: the window-gather PCF on the three config-4 paths ----
+    t_window = time.perf_counter()
+    for k, n in window_phase(tp, state0, wrappers, card_name_and_limit()).items():
+        total_launches[k] += n
+    emit({"phase": "window_done", "seconds": time.perf_counter() - t_window})
     for key, name in (("setup", "setup_triangles"), ("fused", "fused_tiles"),
                       ("raster", "raster_tiles"), ("shade", "shade_tiles"),
                       ("setup_depth", "setup_depth_triangles"), ("raster_depth", "raster_depth"),
@@ -1696,18 +1721,14 @@ def main() -> int:
         kernels[key]["launches"] = total_launches[name]
         check(total_launches[name] > 0, f"{name} never launched on the main paths")
 
-    # ---- 20. bands: the band kernels, then render_sharded's paths ----
+    # ---- 21. bands: the band kernels, then render_sharded's paths ----
     t_bands = time.perf_counter()
     band_kernel_phase(tp, state, dev, kernels)
     band_path_phase(tp, state0, c1_state0, dev, kernels)
     emit({"phase": "bands_done", "seconds": time.perf_counter() - t_bands})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_name_and_limit(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "list_fed", "variants_ms", "variants_device_ms", "rows", "prepass_device_ms",
@@ -1938,6 +1959,185 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
     check(torch.equal(debug_frame, plain_frame), "app debug_layer: the frame differs under the scope")
     emit({"phase": "app", "ok": True, "part": "debug_layer", "raised": False, "ms": debug_s * 1e3,
           "ms_outside_the_scope": plain_s * 1e3})
+    return total
+
+
+# The window phase: the three config-4 paths with the window-gather PCF
+# (shadow_window_gather), each as (label, config changes from the flagship,
+# wrapper launches a frame).
+WINDOW_PATHS = (
+    ("config4_fused_split", dict(fused=True, **CONFIG4_FLAGS),
+     {"setup_triangles": 1, "setup_depth_triangles": 1, "raster_depth": 1, "fused_tiles": 1,
+      "directional_resolve": 1}),
+    ("config4_fused_unsplit", dict(fused=True, **CONFIG4_UNSPLIT_FLAGS),
+     {"setup_triangles": 1, "setup_depth_triangles": 1, "raster_depth": 2, "fused_tiles": 1}),
+    ("config4_staged", dict(fused=False, **CONFIG4_FLAGS),
+     {"setup_triangles": 1, "raster_tiles": 1, "bump_tiles": 1, "setup_depth_triangles": 1,
+      "raster_depth": 1, "shade_tiles": 1}),
+)
+WINDOW_SWEEP_STEPS, WINDOW_SAMPLE_EVERY, WINDOW_TIMED_FRAMES, WINDOW_PROFILED_FRAMES = 64, 4, 30, 2
+
+
+class CallSpy:
+    """Stands in for function `name` in `modules` (each module that calls
+    it by that name): calls it, runs `on_call(args, kwargs)` first and keeps
+    the last call's arguments.  restore() puts the function back."""
+
+    def __init__(self, modules, name, on_call=None):
+        self.modules, self.name, self.on_call, self.last = modules, name, on_call, None
+        self.fn = getattr(modules[0], name)
+        for m in modules:
+            setattr(m, name, self)
+
+    def __call__(self, *args, **kwargs):
+        if self.on_call is not None:
+            self.on_call(args, kwargs)
+        self.last = (args, kwargs)
+        return self.fn(*args, **kwargs)
+
+    def restore(self) -> None:
+        for m in self.modules:
+            setattr(m, self.name, self.fn)
+
+
+def window_phase(tp, state0, wrappers, card: str) -> dict:
+    """The window-gather PCF on the three config-4 paths at 1920x1080 (1024^2
+    shadow map, the flagship scene), each run with every launch count set
+    to 0 just before it and read just after; returns the launches summed
+    over the paths.  For each path: at every 4th step of the 64-step yaw
+    orbit, step_frame with shadow_window_gather equal (torch.equal) to
+    step_frame without it from the same state, and render_stats' overflow
+    0 (a state that overflows has its count held against the plain chain's
+    and recorded instead); the largest bad-quad count over those steps
+    beside the automatic cap; the last frame's visibility inputs through
+    shadow_visibility on the card bit-equal to the card's quad path, and
+    on the first path to the CPU's; overflow >= 1 through render_stats at
+    shadow_bad_quads_cap 8; ms/frame of the flag on and off in turns (best
+    of 3 passes of 30 step_frame calls), CUDA launches and device busy ms
+    a frame (torch.profiler over 2 frames each), and shadow_visibility's
+    device ms alone from CUDA-graph replays, on and off."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3d12_deferred_renderer_tpu_torch.ops import fused, shadows
+
+    total = {k.__name__: 0 for k in wrappers}
+    cpu_checked = None
+    for label, changes, per_frame in WINDOW_PATHS:
+        t_path, seconds = time.perf_counter(), {}
+        off = dataclasses.replace(tp.FLAGSHIP_CONFIG, **changes)
+        on = dataclasses.replace(off, shadow_window_gather=True)
+        counts = []  # (bad quads, quads) of each window-row call
+        count_spy = CallSpy([shadows], "_pcf_window_rows", lambda a, k: counts.append(
+            (shadows.window_quads(a[0], a[1], k.get("tile_w", 128))[-1].sum(), a[2].numel() // 4)))
+        vis_spy = CallSpy([tp.frame, fused], "shadow_visibility")
+        try:
+            reset_launches(wrappers)
+            frames, state, sampled, equal, overflow = 0, state0, [], [], []
+            for i in range(WINDOW_SWEEP_STEPS):
+                state = tp.animate(state, 2.0 * math.pi / WINDOW_SWEEP_STEPS, off)
+                if i % WINDOW_SAMPLE_EVERY != WINDOW_SAMPLE_EVERY - 1:
+                    continue
+                nxt, f_on = tp.step_frame(state, on)
+                _, f_off = tp.step_frame(state, off)
+                _, stats = tp.render_stats(nxt, on)
+                frames += 3
+                sampled.append((i, state))
+                equal.append(torch.equal(f_on, f_off))
+                overflow.append(stats["overflow"])
+            launches = {k.__name__: k.launches for k in wrappers}
+            for k, n in launches.items():
+                total[k] += n
+            expect = {**{k.__name__: 0 for k in wrappers}, **{k: n * frames for k, n in per_frame.items()}}
+            check(launches == expect, f"window {label}: launch counts {launches}, expected {expect}")
+            overflow = [int(o) for o in torch.stack(overflow)]
+            bad = [int(c) for c, _ in counts]
+            quads = counts[0][1]
+            auto_cap = min(max(8, -(-(quads // 8) // 8) * 8), quads)
+            over = {}
+            for (i, s), eq, ovf in zip(sampled, equal, overflow):
+                if ovf == 0:
+                    check(eq, f"window {label}: step {i}: the frame differs from the quad path's")
+                    continue
+                # Overflowing bad quads blend zero taps: the frame may differ.
+                # Hold the count against the plain chain at that state.
+                s1 = tp.animate(s, on.yaw_per_frame, on)
+                plain = (fused_plain_chain(s1, on) if on.fused else staged_plain_chain(s1, on, shade=False))[1]
+                check(int(plain) == ovf, f"window {label}: step {i}: overflow {ovf} != plain chain's {int(plain)}")
+                over[i] = ovf
+            # The last frame's visibility inputs: the card against the CPU
+            # and against the card's quad path.
+            args, kwargs = vis_spy.last
+        finally:
+            count_spy.restore()
+            vis_spy.restore()
+        seconds["sweep"] = time.perf_counter() - t_path
+        t0 = time.perf_counter()
+        depth, vp, sd, lvp = args[:4]
+        v_on, o_on = shadows.shadow_visibility(depth, vp, sd, lvp, on, **{**kwargs, "return_overflow": True})
+        v_off = shadows.shadow_visibility(depth, vp, sd, lvp, off, **{**kwargs, "return_overflow": False})
+        check(torch.equal(v_on, v_off) or int(o_on) > 0,
+              f"window {label}: the window visibility differs from the quad path's")
+        if cpu_checked is None:  # one frame's inputs (the first path's) on the CPU
+            cpu_kw = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kwargs.items()}
+            v_cpu, o_cpu = shadows.shadow_visibility(depth.cpu(), vp.cpu(), sd.cpu(), lvp.cpu(), on,
+                                                     **{**cpu_kw, "return_overflow": True})
+            check(torch.equal(v_on.cpu(), v_cpu) and int(o_on) == int(o_cpu),
+                  f"window {label}: the card's window visibility differs from the CPU's")
+            cpu_checked = label
+        reset_launches(wrappers)
+        _, loud = tp.render_stats(sampled[-1][1], dataclasses.replace(on, shadow_bad_quads_cap=8))
+        for k, n in ((k.__name__, k.launches) for k in wrappers):
+            total[k] += n
+        check(int(loud["overflow"]) >= 1, f"window {label}: no overflow at shadow_bad_quads_cap 8")
+        graph = {flag: graph_ms(lambda c=c: shadows.shadow_visibility(depth, vp, sd, lvp, c, **kwargs), 20)
+                 for flag, c in (("off", off), ("on", on))}
+        seconds["checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # ms/frame, flag off and on in turns (the order swapped each pass).
+        passes = {"off": [], "on": []}
+        reset_launches(wrappers)
+        for p in range(3):
+            for flag in (("off", "on") if p % 2 == 0 else ("on", "off")):
+                c, s = (on if flag == "on" else off), state0
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(WINDOW_TIMED_FRAMES):
+                    s, _ = tp.step_frame(s, c)
+                end.record()
+                torch.cuda.synchronize()
+                passes[flag].append(start.elapsed_time(end) / WINDOW_TIMED_FRAMES)
+        prof = {}
+        for flag, c in (("off", off), ("on", on)):
+            s = state0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+                for _ in range(WINDOW_PROFILED_FRAMES):
+                    s, _ = tp.step_frame(s, c)
+                torch.cuda.synchronize()
+            avgs = pr.key_averages()
+            busy_us = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in avgs
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            count = {e.key: e.count for e in avgs}
+            prof[flag] = {"cuda_launches": count.get("cudaLaunchKernel", 0) / WINDOW_PROFILED_FRAMES,
+                          "device_busy_ms": busy_us / 1e3 / WINDOW_PROFILED_FRAMES}
+        seconds["timing"] = time.perf_counter() - t0
+        for k, n in ((k.__name__, k.launches) for k in wrappers):
+            total[k] += n
+        emit({
+            "phase": "window", "ok": True, "config": label, "card": card,
+            "resolution": f"{on.width}x{on.height}", "shadow_map": on.shadow_map_size,
+            "tile_slots": quads // 256, "quads": quads, "auto_bad_quads_cap": auto_cap,
+            "sampled_steps": [i for i, _ in sampled], "frames_bit_equal": sum(equal),
+            "sampled_overflow": overflow, "bad_quads": bad, "max_bad_quads": max(bad),
+            "overflowing_steps": over, "card_vs_cpu_bit_equal": cpu_checked,
+            "cap_8_overflow": int(loud["overflow"]),
+            "ms_per_frame": {f: min(v) for f, v in passes.items()}, "passes_ms": passes,
+            "launches_per_frame": {f: prof[f]["cuda_launches"] for f in prof},
+            "device_busy_ms_per_frame": {f: prof[f]["device_busy_ms"] for f in prof},
+            "visibility_device_ms": graph, "seconds": {**seconds, "all": time.perf_counter() - t_path},
+        })
     return total
 
 
@@ -2345,8 +2545,7 @@ def time_staged(root: str, passes: int = 3) -> int:
           "setup_ptxas": setup_ptxas(cuda_build.BuildInfo.log),
           "bump_ptxas": ptxas_lines(cuda_build.BuildInfo.log, "bump_tile_kernel"),
           "timing": "device ms per call, 50 calls replayed from one CUDA graph, per pass"})
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    print(card_name_and_limit(), flush=True)
     return 0
 
 
@@ -2465,8 +2664,7 @@ def time_bump(root: str, passes: int = 3) -> int:
     finally:
         cuda_build.library = library
         shutil.rmtree(tmp, ignore_errors=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    print(card_name_and_limit(), flush=True)
     return 0
 
 
@@ -2562,8 +2760,7 @@ def time_setup_blocks(sizes=(64, 128, 256), passes: int = 3) -> int:
               "timing": "device ms per call, 50 calls replayed from one CUDA graph, per pass"})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    print(card_name_and_limit(), flush=True)
     return 0
 
 

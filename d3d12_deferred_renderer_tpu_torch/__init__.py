@@ -20,10 +20,10 @@ consecutive frames and cfg.supersample box-averages an s-times frame.  The
 application path: runtime.App (the frame loop with the triple-buffered
 PresentQueue or the DeltaPresentQueue), runtime.NativeFrameSink and
 PassProfiler, scene_io checkpoints, utils (PNG IO, validate_scene,
-debug_layer) and the native C++ OBJ loader (models/native).
-frame.check_ported says which configs raise NotImplementedError.  Scenes live on the CUDA device unless the caller
-passes device="cpu"; a CUDA kernel runs for tensors on a CUDA device, its
-plain PyTorch version for tensors on the CPU.
+debug_layer) and the native C++ OBJ loader (models/native).  Scenes live
+on the CUDA device unless the caller passes device="cpu"; a CUDA kernel
+runs for tensors on a CUDA device, its plain PyTorch version for tensors
+on the CPU.
 """
 from .calibrate import autotune, autotune_shadow
 from .config import FLAGSHIP_CONFIG, REFERENCE_CONFIG, RendererConfig

@@ -56,23 +56,6 @@ def _fused_eligible(cfg: RendererConfig) -> bool:
     return cfg.fused and cfg.use_pallas and cfg.shading == "pbr" and cfg.quantize_gbuffer
 
 
-# Configs outside the ported slice, with the ROADMAP.md Queue 1 item that
-# holds them.
-_NOT_PORTED = (
-    (lambda c: c.shadows and c.shadow_window_gather,
-     "the shadow window gather (off in the JAX package, its measured loss; item 3)"),
-)
-
-
-def check_ported(cfg: RendererConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot render yet."""
-    for test, what in _NOT_PORTED:
-        if test(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch package yet (ROADMAP.md Queue 1)"
-            )
-
-
 def _rasterize(tris, cfg: RendererConfig, inv_vp=None):
     """(FragmentPlanes, overflow): the tile raster kernel over the binned
     records with cfg.use_pallas, and given the frame's inverse
@@ -94,7 +77,6 @@ def render_stats(state: SceneState, cfg: RendererConfig):
     and is box-averaged as JAX's float32 mean: each s x s block's sum (exact
     in float32) divided once by s^2, rounded half to even.  Under
     utils.debug.debug_layer the float stages are checked for NaN and Inf."""
-    check_ported(cfg)
     if cfg.supersample > 1:
         s = cfg.supersample
         hi_cfg = dataclasses.replace(cfg, width=cfg.width * s, height=cfg.height * s, supersample=1)
@@ -186,7 +168,6 @@ def render(state: SceneState, cfg: RendererConfig) -> torch.Tensor:
 def render_gbuffer(state: SceneState, cfg: RendererConfig) -> GBuffer:
     """The geometry pass only (for tests and tools): the G-buffer with its
     format quantization."""
-    check_ported(cfg)
     tris, _ = setup_frame_triangles(state, cfg)
     return encode_gbuffer(_rasterize(tris, cfg)[0], state.materials, cfg)
 

@@ -1,10 +1,7 @@
 """Directional-light shadow mapping (BASELINE config 4).
 
-The counterpart of d3d12_deferred_renderer_tpu/ops/shadows.py, without the
-window gather (``shadow_window_gather``, ``pack_cmp_windows`` and
-``_pcf_window_rows``: rejected and off in the JAX package; the frame raises
-for it).  The shadow map is a depth-only render from the light's
-orthographic view:
+The counterpart of d3d12_deferred_renderer_tpu/ops/shadows.py.  The shadow
+map is a depth-only render from the light's orthographic view:
 
 - ``setup_light_view_triangles``: the depth-only setup kernel
   (setup_cuda.setup_depth_triangles, cull "none": both faces occlude);
@@ -15,11 +12,15 @@ orthographic view:
   with ``cfg.shadow_vis_downsample`` d > 1 of every d-th pixel, upsampled
   bilinearly), or of the tiles holding geometry only (sparse,
   ``cfg.shadow_tiles_cap``), optionally only of tiles with a pixel that
-  faces the light (``lit_mask``).
+  faces the light (``lit_mask``).  On the sparse path
+  ``cfg.shadow_window_gather`` reads one 4x4 texel window a 2x2 pixel quad
+  (``_pcf_window_rows``), with the same bits as the per-pixel footprints
+  while its bad-quad cap holds.
 
 The sparse path compacts the covered tile ids with a stable sort, a fixed
 number of slots and no host synchronisation; more covered tiles than slots
-add one to the loud overflow count.  The visibility transform composes the
+add one to the loud overflow count, and so do more bad quads than
+``cfg.shadow_bad_quads_cap``.  The visibility transform composes the
 frame's inverse view-projection (pass ``inv_vp``, the one the shading
 reads) with the light's, rounded as XLA's dot rounds it.
 """
@@ -37,7 +38,7 @@ from ..scene import SceneState
 from .lighting import inverse_view_proj
 from .raster_ref import rasterize_packed
 from .raster_tiles import rasterize_depth
-from .sampling import sample_bilinear_cmp
+from .sampling import cmp_blend, footprint_base, sample_bilinear_cmp, window_texels
 from .setup_cuda import setup_depth_triangles
 
 F32 = torch.float32
@@ -147,6 +148,18 @@ def _light_ndc(ndc_x, ndc_y, depth, M):
     return lc[0] / w, lc[1] / w, lc[2] / w
 
 
+def _light_uv(nx, ny):
+    """Shadow-map uv [..., 2] of light NDC (x, y): y flipped, as the main
+    pass's viewport."""
+    return torch.stack([(nx + 1.0) * 0.5, (1.0 - ny) * 0.5], dim=-1)
+
+
+def _in_frustum(vis, nx, ny, z):
+    """vis inside the light frustum, 1 outside."""
+    inside = (nx >= -1.0) & (nx <= 1.0) & (ny >= -1.0) & (ny <= 1.0) & (z >= 0.0) & (z <= 1.0)
+    return torch.where(inside, vis, torch.ones((), dtype=F32, device=vis.device))
+
+
 def _pcf(shadow_depth, nx, ny, z, bias, downsample: int = 1):
     """Visibility of light-NDC points: PCF inside the light frustum, 1 out.
     With downsample d > 1 (an [H, W] grid) the comparison runs at the points
@@ -156,15 +169,13 @@ def _pcf(shadow_depth, nx, ny, z, bias, downsample: int = 1):
     the frustum test stays per point."""
     if downsample > 1:
         o, d = downsample // 2, downsample
-        uv = torch.stack([(nx[o::d, o::d] + 1.0) * 0.5, (1.0 - ny[o::d, o::d]) * 0.5], dim=-1)
+        uv = _light_uv(nx[o::d, o::d], ny[o::d, o::d])
         vis = sample_bilinear_cmp(shadow_depth, uv, z[o::d, o::d], bias)
         vis = F.interpolate(vis[None, None], size=nx.shape, mode="bilinear", align_corners=False,
                             antialias=False)[0, 0]
     else:
-        uv = torch.stack([(nx + 1.0) * 0.5, (1.0 - ny) * 0.5], dim=-1)
-        vis = sample_bilinear_cmp(shadow_depth, uv, z, bias)
-    inside = (nx >= -1.0) & (nx <= 1.0) & (ny >= -1.0) & (ny <= 1.0) & (z >= 0.0) & (z <= 1.0)
-    return torch.where(inside, vis, torch.ones((), dtype=F32, device=vis.device))
+        vis = sample_bilinear_cmp(shadow_depth, _light_uv(nx, ny), z, bias)
+    return _in_frustum(vis, nx, ny, z)
 
 
 def shadow_visibility(
@@ -184,7 +195,9 @@ def shadow_visibility(
     ``lit_mask`` ([H, W] bool: the pixel faces the light) only tiles with a
     lit covered pixel are sampled, under ``cfg.shadow_tiles_cap_lit``.
     Covered tiles beyond the cap are not sampled and count in the overflow
-    (returned with return_overflow).  ``inv_vp`` is the frame's inverse
+    (returned with return_overflow).  With ``cfg.shadow_window_gather`` the
+    sparse path samples through _pcf_window_rows; the dense path ignores
+    the flag, as in the JAX package.  ``inv_vp`` is the frame's inverse
     view-projection (computed here when None).  ``y_offset`` /
     ``full_height`` evaluate a band of a taller frame (the screen-row band
     path): dense, as in the JAX package, so that its overflow counts match
@@ -247,10 +260,95 @@ def _shadow_visibility_sparse(depth, shadow_depth, M, cfg, bias, lit_mask):
     ndc_x = (pxf + 0.5) * (2.0 / W) - 1.0
     ndc_y = 1.0 - (pyf + 0.5) * (2.0 / H)
     nx, ny, z = _light_ndc(ndc_x, ndc_y, d_t[idx_c], M)
-    rows = _pcf(shadow_depth, nx, ny, z, bias)
+    uv = _light_uv(nx, ny)
+    if cfg.shadow_window_gather:
+        vis, w_overflow = _pcf_window_rows(shadow_depth, uv, z, bias, cfg, tile_w=TW)
+        overflow = overflow + w_overflow
+    else:
+        vis = sample_bilinear_cmp(shadow_depth, uv, z, bias)
+    rows = _in_frustum(vis, nx, ny, z)
 
     # Row NT takes the unused slots' writes and is dropped.
     out = torch.ones((NT + 1, P), dtype=F32, device=dev)
     out[idx] = rows
     out = out[:NT].reshape(nty, ntx, TH, TW).transpose(1, 2).reshape(H, W)
     return out, overflow
+
+
+def _quads(a, tile_w: int):
+    """[B, P] tile rows (tile_w pixels a row) -> [B, Q, 4] 2x2 pixel quads
+    (r0c0, r0c1, r1c0, r1c1), Q = P / 4."""
+    B, P = a.shape
+    return a.reshape(B, P // tile_w // 2, 2, tile_w // 2, 2).transpose(2, 3).reshape(B, P // 4, 4)
+
+
+def _unquad(a, tile_w: int):
+    """The inverse of _quads: [B, Q, 4] -> [B, P]."""
+    B, Q, _ = a.shape
+    return a.reshape(B, 4 * Q // tile_w // 2, tile_w // 2, 2, 2).transpose(2, 3).reshape(B, 4 * Q)
+
+
+def window_quads(shadow_depth, uv, tile_w: int = 128):
+    """The 2x2 pixel quads of [B, P] tile rows of shadow-map uv: each
+    pixel's footprint base xq, yq and weights txq, tyq [B, Q, 4] (the
+    bases clamped to [-1, S - 1] in float first: a coordinate far off the
+    map stays on its edge, a NaN reads 0), each quad's window base bx, by
+    [B, Q] (the least of its pixels'), and bad [B, Q]: the quad's bases
+    spread over more than 2 texels on an axis, so that its four footprints
+    do not fit one 4x4 window."""
+    xi, yi, tx, ty = footprint_base(shadow_depth.shape[0], shadow_depth.shape[1], uv)
+    xq, yq, txq, tyq = (_quads(a, tile_w) for a in (xi, yi, tx, ty))
+    bx, by = xq.amin(-1), yq.amin(-1)
+    bad = ((xq.amax(-1) - bx) > 2) | ((yq.amax(-1) - by) > 2)
+    return xq, yq, txq, tyq, bx, by, bad
+
+
+def _pcf_window_rows(shadow_depth, uv, z, bias, cfg: RendererConfig, tile_w: int = 128):
+    """PCF of [B, P] tile rows (uv [B, P, 2], depth z [B, P]) with one 4x4
+    texel window a 2x2 pixel quad -> (vis [B, P], int32 overflow).
+
+    Each pixel of a quad takes its 2x2 footprint from the quad's window at
+    its offset (dy, dx) from the window base, one of nine cases in [0, 2]^2
+    (a gather of lanes 4 * dy + dx + (0, 1, 4, 5)); a pixel outside the
+    nine keeps zero taps.  Bad quads (window_quads), the first
+    cfg.shadow_bad_quads_cap of them in flat order (-1: an eighth of the
+    B * Q quads, rounded up to 8, at least 8; B is the static slot count),
+    are sampled again from each pixel's own footprint.  A good quad's
+    window holds its pixels' own footprints, so every pixel is bit-equal to
+    sample_bilinear_cmp while the cap holds; more bad quads than the cap
+    (unused tile slots, which repeat the last tile, count too) raise the
+    overflow, and the pixels of the bad quads past the cap blend zero taps,
+    as in the JAX package.  The windows are read from the map directly
+    (sampling.window_texels): pack_cmp_windows' table would write 64 bytes
+    a texel each frame to save nothing on this device."""
+    B, P = z.shape
+    Q = P // 4
+    dev = z.device
+    xq, yq, txq, tyq, bx, by, bad = window_quads(shadow_depth, uv, tile_w)
+    zq = _quads(z, tile_w)
+    win = window_texels(shadow_depth, bx, by).reshape(B, Q, 1, 16).expand(B, Q, 4, 16)
+    dx, dy = xq - bx[..., None], yq - by[..., None]
+    case = (dx <= 2) & (dy <= 2)
+    off = torch.arange(4, device=dev)
+    lanes = torch.where(case, 4 * dy + dx, 0)[..., None] + (4 * (off // 2) + off % 2)
+    taps = torch.where(case[..., None], torch.gather(win, 3, lanes), torch.zeros((), dtype=F32, device=dev))
+    vis_q = cmp_blend(taps, zq, txq, tyq, bias).reshape(B * Q, 4)
+
+    cap = cfg.shadow_bad_quads_cap
+    if cap < 0:  # auto: an eighth of the quads, rounded up to 8
+        cap = max(8, -(-(B * Q // 8) // 8) * 8)
+    cap = min(cap, B * Q)
+    flat = bad.reshape(-1)
+    overflow = (flat.sum() > cap).to(torch.int32)
+    # The first `cap` bad quads in ascending order, then B * Q for the
+    # unused slots: their row is dropped.
+    ids = torch.arange(B * Q, device=dev)
+    order = torch.sort(torch.where(flat, ids, B * Q + ids)).values[:cap]
+    bidx = torch.where(order < B * Q, order, B * Q)
+    bcl = torch.clamp(bidx, max=B * Q - 1)
+    xb, yb, txb, tyb, zb = (a.reshape(B * Q, 4)[bcl] for a in (xq, yq, txq, tyq, zq))
+    vb = cmp_blend(window_texels(shadow_depth, xb, yb, 2).reshape(-1, 4, 4), zb, txb, tyb, bias)
+    out = torch.empty((B * Q + 1, 4), dtype=F32, device=dev)
+    out[: B * Q] = vis_q
+    out[bidx] = vb
+    return _unquad(out[: B * Q].reshape(B, Q, 4), tile_w), overflow

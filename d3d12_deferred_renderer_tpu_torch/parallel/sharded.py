@@ -59,9 +59,6 @@ block form over the band's world positions, as JAX's band path runs it.
 The composite keeps every bit of the winner's planes: the masked ranks
 add -0.0, the one value whose sum leaves every float unchanged (-0.0 as
 well), where JAX's psum of +0.0 makes a -0.0 depth or attribute +0.0.
-
-Not yet ported (ROADMAP.md Queue 1 item 3): the shadow window gather
-(frame.check_ported refuses it here too).
 """
 from __future__ import annotations
 
@@ -73,7 +70,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import RendererConfig
-from ..frame import _fused_eligible, check_ported
+from ..frame import _fused_eligible
 from ..ops import post
 from ..ops.bump import apply_normal_mapping, bump_tiles
 from ..ops.fused import render_fused
@@ -358,7 +355,6 @@ def render_sharded(state: SceneState, cfg: RendererConfig, group=None, return_st
         raise ValueError(f"height {cfg.height} not divisible by {g.total} bands")
     band = cfg.height // g.total
     _check_band_safe(cfg, band)
-    check_ported(cfg)
     frame, overflow = _render_band(state, cfg, g.index * band, band, g)
     frame = g.all_gather_tiled(frame)
     overflow = g.sum(overflow)
@@ -465,7 +461,6 @@ def _tri_plan(cfg: RendererConfig, mesh: Mesh, tri_axis: str, rows_axis) -> _Tri
         raise ValueError(f"band height {band} not divisible by {n_t} triangle shards (shading sub-bands)")
     sub = band // n_t
     _check_band_safe(cfg, sub)
-    check_ported(cfg)
     return _TriPlan(tri, _shade_axes(mesh, rows_axis, tri_axis), rows.index * band, band, sub)
 
 
@@ -544,7 +539,6 @@ def render_frames_batch_sharded(state: SceneState, times: torch.Tensor, cfg: Ren
         raise ValueError("batch/height not divisible by mesh axes")
     band = cfg.height // rows.total
     _check_band_safe(cfg, band)
-    check_ported(cfg)
     out, overflow = [], torch.zeros((), dtype=torch.int32, device=state.time.device)
     for t in _frame_share(times, frames):
         color, ovf = _render_band(_with_time(state, t), cfg, rows.index * band, band, rows)

@@ -15,7 +15,9 @@ against the JAX package.
   visibility plane, bloom), each against the JAX package's
   staged frame (render_stats with use_pallas off, run op by op) on the same
   scene, given JAX's inverse view-projection: max |du8| <= 1 on fewer than
-  2% of pixels (test_fused.py's config-4 contract), and equal overflow.
+  2% of pixels (test_fused.py's config-4 contract), and equal overflow;
+  each also with the window-gather PCF (shadow_window_gather), bit-equal
+  to the frame without it.
 """
 import dataclasses
 
@@ -83,17 +85,26 @@ FUSED_PATHS = {
 }
 
 
-@pytest.mark.parametrize("fused_path", list(FUSED_PATHS))
-def test_config4_frame_matches_jax_staged(jax_frame, fused_path, monkeypatch):
+FRAME_CASES = [(path, window) for window in (False, True) for path in FUSED_PATHS]
+
+
+@pytest.mark.parametrize("fused_path, window", FRAME_CASES,
+                         ids=[path + ("-window_pcf" if window else "") for path, window in FRAME_CASES])
+def test_config4_frame_matches_jax_staged(jax_frame, fused_path, window, monkeypatch):
     """Given JAX's inverse view-projection: the two packages' LU inverses
     differ in the last bits, and a light-space tap within 1 ULP of a
     shadow-map texel then flips (without it, 1 pixel of 16,384 moves by 7
-    LSB on this scene)."""
+    LSB on this scene).  With the window-gather PCF (shadow_window_gather)
+    each frame is also bit-equal to the same frame without it."""
     jstate, ref, jov = jax_frame
     monkeypatch.setattr(torch.linalg, "inv_ex", lambda a: (
         torch.from_numpy(np.array(jnp.linalg.inv(a.numpy()))), torch.zeros((), dtype=torch.int32)))
     state = tp.scene_from_arrays(tp.arrays_from_state(jstate), device="cpu")
-    frame, stats = tp.render_stats(state, dataclasses.replace(TCFG, **FUSED_PATHS[fused_path]))
+    cfg = dataclasses.replace(TCFG, shadow_window_gather=window, **FUSED_PATHS[fused_path])
+    frame, stats = tp.render_stats(state, cfg)
+    if window:
+        quad, quad_stats = tp.render_stats(state, dataclasses.replace(cfg, shadow_window_gather=False))
+        assert torch.equal(frame, quad) and int(quad_stats["overflow"]) == 0
     diff = np.abs(frame.numpy().astype(int) - ref.astype(int)).max(-1)
     assert frame.shape == ref.shape == (64, 256, 3)
     assert diff.max() <= 1, f"max u8 diff {diff.max()}"

@@ -787,6 +787,68 @@ def test_prepass_step_frame_on_the_card(config):
     assert float((frame.amax(-1) > 0).double().mean()) > 0.2
 
 
+# ---- the window-gather PCF (shadow_window_gather): plain PyTorch on the
+# card; a 128^2 map keeps the small frame's bad quads under the automatic
+# cap (a 256^2 map over 256x64 pixels has 854 of them, over its 512) ----
+
+WINDOW_CONFIG4 = dataclasses.replace(CONFIG4, shadow_map_size=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad_quads_cap", [-1, 8], ids=["auto_cap", "cap_8"])
+def test_window_visibility_on_the_card_matches_cpu(bad_quads_cap):
+    """The window visibility on the card bit-equal to the CPU's on the same
+    inputs (the frame's prepass depth and shadow map, one inverse), with
+    equal overflow: 0 under the automatic cap, where it also equals the
+    card's quad path; 1 at 8 bad quads."""
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+
+    dev = _cuda()
+    cfg = dataclasses.replace(WINDOW_CONFIG4, shadow_window_gather=True, shadow_bad_quads_cap=bad_quads_cap)
+    state = _scene(cfg, dev, n_lights=16)
+    tris, view_proj = setup_frame_triangles(state, cfg)
+    b = bin_triangles(tris.packed, tris.aabb, tris.valid, cfg)
+    depth = raster_tiles.raster_depth(b.counts, b.offs, b.stream, nty=8, ntx=2, tile_h=8, tile_w=128)[:64, :256]
+    sd, lvp = shadows.render_shadow_map(state, cfg)
+    args = (depth, view_proj, sd, lvp)
+    inv_vp = lighting.inverse_view_proj(view_proj)
+    got, ovf = shadows.shadow_visibility(*args, cfg, return_overflow=True, inv_vp=inv_vp)
+    cpu, cpu_ovf = shadows.shadow_visibility(*(a.cpu() for a in args), cfg, return_overflow=True,
+                                             inv_vp=inv_vp.cpu())
+    quad = shadows.shadow_visibility(*args, dataclasses.replace(cfg, shadow_window_gather=False), inv_vp=inv_vp)
+    assert torch.equal(got.cpu(), cpu)
+    assert int(ovf) == int(cpu_ovf) == (1 if bad_quads_cap == 8 else 0)
+    assert torch.equal(got, quad) == (bad_quads_cap != 8)
+    assert 0.0 < float((got < 1.0).double().mean()) < 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["config4_fused_split", "config4_fused_unsplit", "config4_staged"])
+def test_window_gather_frames_on_the_card(config, monkeypatch):
+    """The three config-4 frames at 256x64 on the card: with
+    shadow_window_gather bit-equal to the same frame without it, through
+    the window rows, overflow 0, at three clocks."""
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+
+    dev = _cuda()
+    cfg = {"config4_fused_split": WINDOW_CONFIG4,
+           "config4_fused_unsplit": dataclasses.replace(WINDOW_CONFIG4, deferred_directional=False,
+                                                        inkernel_light_cull=False),
+           "config4_staged": dataclasses.replace(WINDOW_CONFIG4, fused=False)}[config]
+    window_calls = []
+    window_rows = shadows._pcf_window_rows
+    monkeypatch.setattr(shadows, "_pcf_window_rows", lambda *a, **k: (window_calls.append(1), window_rows(*a, **k))[1])
+    state = _scene(cfg, dev, n_lights=16)
+    for _ in range(3):
+        state = tp.animate(state, cfg.yaw_per_frame, cfg)
+        window, w_stats = tp.render_stats(state, dataclasses.replace(cfg, shadow_window_gather=True))
+        quad, q_stats = tp.render_stats(state, cfg)
+        assert torch.equal(window, quad)
+        assert int(w_stats["overflow"]) == int(q_stats["overflow"]) == 0
+    assert len(window_calls) == 3
+    assert float((window.amax(-1) > 0).double().mean()) > 0.2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4096, 8192])
 def test_row_scatter_kernel_matches_plain(n):

@@ -14,6 +14,8 @@
   as the duplicated geometry.
 * The overflow warning of render: JAX's message on a frame that overflows
   a capacity cap, none on a frame that does not.
+* Every entry point takes the shadow window gather (shadow_window_gather)
+  and renders with it the frames it renders without it.
 """
 import ast
 import dataclasses
@@ -170,33 +172,50 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
-@pytest.mark.parametrize("change", [
-    dict(shadows=True, fused=False, shadow_window_gather=True),
-], ids=lambda c: next(iter(c)) if len(c) == 1 else "_".join(c)[-20:])
-def test_configs_outside_the_slice_raise(change):
-    """The window gather (rejected by design) raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.frame.check_ported(dataclasses.replace(TCFG, **change))
+def _one_rank_mesh(*names):
+    """A mesh of one rank on every axis: the collectives of a one-rank
+    axis return their input, so no process group is needed."""
+    from d3d12_deferred_renderer_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(names, (1,) * len(names), (0,) * len(names), (None,) * len(names), False)
 
 
-@pytest.mark.parametrize("change", [
-    dict(shading="lambert"), dict(fused=False), dict(use_pallas=False),
-    dict(quantize_gbuffer=False), dict(fused=False, inkernel_light_cull=False),
-    dict(normal_mapping=True), dict(bloom=True), dict(fxaa=True), dict(deferred_directional=True),
-    dict(shadows=True, deferred_directional=True, normal_mapping=True, bloom=True),
-    dict(fused=False, shadows=True, normal_mapping=True, bloom=True, fxaa=True),
-    dict(shadows=True), dict(inkernel_light_cull=False),
-    dict(shadows=True, deferred_directional=True, shadow_vis_downsample=2),
-    dict(shadows=True, fused=False, shadow_bin_tiers=(4, 32, 512, 256, 64, 16, 26112)),
-    dict(supersample=2),
-], ids=lambda c: "_".join(c))
-def test_staged_configs_are_ported(change):
-    """The staged frame takes Lambert, the unfused and unquantized PBR
-    frames and the config-4 stack; the fused frame takes the bump, bloom,
-    FXAA, shadows with or without the deferred-directional split, and the
-    depth prepass with per-tile light lists; downsampled PCF, calibrated
-    shadow tiers and supersampling are ported."""
-    tp.frame.check_ported(dataclasses.replace(TCFG, **change))
+# entry point -> (call(state, cfg) -> uint8 frames, whether it takes the
+# sparse PCF path: whole frames do; bands and triangle shards are dense, as
+# in the JAX package).
+WINDOW_ENTRY_POINTS = {
+    "render": (lambda s, c: tp.render(s, c), True),
+    "step_frame": (lambda s, c: tp.step_frame(s, c)[1], True),
+    "render_batch": (lambda s, c: tp.render_batch(s, c, 1)[1], True),
+    "render_sharded": (lambda s, c: tp.parallel.render_sharded(s, c), False),
+    "render_tri_sharded": (lambda s, c: tp.parallel.render_tri_sharded(s, c, _one_rank_mesh("tri")), False),
+    "render_frames_batch_sharded": (lambda s, c: tp.parallel.render_frames_batch_sharded(
+        s, torch.tensor([0.25]), c, _one_rank_mesh("frame", "rows")), False),
+    "render_frames_batch_tri_sharded": (lambda s, c: tp.parallel.render_frames_batch_tri_sharded(
+        s, torch.tensor([0.25]), c, _one_rank_mesh("frame", "tri")), False),
+}
+
+
+@pytest.mark.parametrize("entry", list(WINDOW_ENTRY_POINTS))
+def test_entry_points_take_the_window_gather(entry, monkeypatch):
+    """Every entry point renders with shadow_window_gather (the window-gather
+    PCF, the last branch the port lacked) the frames it renders without it:
+    through the window rows on whole frames, per pixel on bands and
+    triangle shards."""
+    from d3d12_deferred_renderer_tpu_torch.ops import shadows
+    from d3d12_deferred_renderer_tpu_torch.parallel import sharded
+
+    call, sparse = WINDOW_ENTRY_POINTS[entry]
+    monkeypatch.setattr(sharded.BandGroup, "of", staticmethod(lambda group=None: sharded.BandGroup(None, 0, 1, False)))
+    window_calls = []
+    window_rows = shadows._pcf_window_rows
+    monkeypatch.setattr(shadows, "_pcf_window_rows", lambda *a, **k: (window_calls.append(1), window_rows(*a, **k))[1])
+    cfg = dataclasses.replace(TCFG, shadows=True, shadow_map_size=128)
+    state = tp.animate(_port_scene(), 0.5, cfg)
+    window = call(state, dataclasses.replace(cfg, shadow_window_gather=True))
+    assert bool(window_calls) == sparse
+    assert torch.equal(window, call(state, cfg))
+    assert float((window.amax(-1) > 0).double().mean()) > 0.2
 
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets", "models")
