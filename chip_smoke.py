@@ -102,14 +102,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 19. app    — the application path on the fused flagship, modelled on
              tools/present_run.py: App with PresentQueue (depth 3) over 30
-             frames, every presented frame bit-equal to a separate
-             step_frame loop's from the same state (delivered FPS beside the
-             loop's unpresented ms/frame, a loop that reads every frame back
-             synchronously, and the device-to-host ms of one frame into
-             pinned memory); the same through DeltaPresentQueue (bytes
-             transferred over a full readback's, misses); 8 frames through
-             NativeFrameSink, read back by read_png; render_batch bit-equal
-             to step_frame; supersample=2 on config 1 (K1, K6 at 2560x1440)
+             frames (step_frame_jit's graph replays), every presented frame
+             bit-equal to a separate step_frame loop's from the same state
+             (delivered FPS beside the same loop of eager step_frame calls
+             into a PresentQueue, the loop's unpresented ms/frame, a loop
+             that reads every frame back synchronously, and the
+             device-to-host ms of one frame into pinned memory); the same
+             through DeltaPresentQueue (bytes transferred over a full
+             readback's, misses); 8 frames through NativeFrameSink, read
+             back by read_png; render_batch (graph replays) bit-equal to
+             step_frame, its ms/frame beside an eager loop's; supersample=2
+             on config 1 (K1, K6 at 2560x1440)
              and the flagship (K1, K2 at 3840x2160) bit-equal to the box
              average of the frame at twice the size, overflow 0, config 1
              within 1 u8 of its plain chain's; a checkpoint saved mid-orbit
@@ -126,7 +129,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              >= 1 at shadow_bad_quads_cap 8; ms/frame, CUDA launches and
              device busy ms a frame, and shadow_visibility's graph-replayed
              device ms, flag on beside flag off.  One line a path.
-21. bands — the screen-row band path.  bands_kernels: K6, K3, K7, K2 and
+21. graph  — step_frame_jit, the frame captured once as a CUDA graph and
+             replayed, on the seven main paths (fused flagship, config 1,
+             staged flagship, fused list-fed, the three config-4 paths),
+             supersample=2 on config 1 and the split config 4 with the
+             window-gather PCF, at full size: the host-built perspective
+             matrix bit-equal to the device build it replaced; the capture's
+             seconds and the graph's pool MiB; at every 4th of the 64 orbit
+             steps frame and state bit-equal to step_frame's, no wrapper
+             launch in a replay, the graph's overflow count 0; ms/frame
+             graphed and eager in turns (best of 3 x 30); from one profiled
+             window each, device busy ms and share, device kernels and
+             copies a frame, and 0 synchronising calls in a graphed frame.
+             Then JAX's overflow warning, once per offending frame under
+             replay.  One line a path.
+22. bands — the screen-row band path.  bands_kernels: K6, K3, K7, K2 and
              K8 on the middle band of 3 (rows 360-719) and K6, K3 and K7 on
              the second band of 4 (rows 270-539: a padded last tile row) of
              the flagship frame, against their plain versions on the same
@@ -162,6 +179,11 @@ the band entries k6_band, k3_band, k7_band, k2_band, k8_band), and the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
 and prints no result.  Needs one card; imports no JAX.  Each main path runs
 with every launch count set to 0 just before it and read just after.
+
+    python3 chip_smoke.py --graph
+
+runs the build, the app phase and the graph phase only (~2 minutes): the
+quickest check of step_frame_jit on the card.
 
     python3 chip_smoke.py --time-staged DIR
 
@@ -1714,6 +1736,12 @@ def main() -> int:
     for k, n in window_phase(tp, state0, wrappers, card_name_and_limit()).items():
         total_launches[k] += n
     emit({"phase": "window_done", "seconds": time.perf_counter() - t_window})
+
+    # ---- 21. graph: step_frame_jit on every main path ----
+    t_graph = time.perf_counter()
+    for k, n in graph_phase(tp, state0, c1_state0, wrappers, card_name_and_limit()).items():
+        total_launches[k] += n
+    emit({"phase": "graph_done", "seconds": time.perf_counter() - t_graph})
     for key, name in (("setup", "setup_triangles"), ("fused", "fused_tiles"),
                       ("raster", "raster_tiles"), ("shade", "shade_tiles"),
                       ("setup_depth", "setup_depth_triangles"), ("raster_depth", "raster_depth"),
@@ -1721,7 +1749,7 @@ def main() -> int:
         kernels[key]["launches"] = total_launches[name]
         check(total_launches[name] > 0, f"{name} never launched on the main paths")
 
-    # ---- 21. bands: the band kernels, then render_sharded's paths ----
+    # ---- 22. bands: the band kernels, then render_sharded's paths ----
     t_bands = time.perf_counter()
     band_kernel_phase(tp, state, dev, kernels)
     band_path_phase(tp, state0, c1_state0, dev, kernels)
@@ -1777,7 +1805,7 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
     import numpy as np
     import torch
 
-    from d3d12_deferred_renderer_tpu_torch.runtime import App, NativeFrameSink, native_sink_available
+    from d3d12_deferred_renderer_tpu_torch.runtime import App, NativeFrameSink, PresentQueue, native_sink_available
     from d3d12_deferred_renderer_tpu_torch.scene_io import load_scene, save_scene
     from d3d12_deferred_renderer_tpu_torch.utils import debug_layer, read_png
 
@@ -1801,6 +1829,9 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
         check(got == want, f"app {part}: launches {got}, expected {want}")
 
     flagship = {"setup_triangles": 1, "fused_tiles": 1}
+    # App.run and render_batch replay step_frame_jit's graph, captured by
+    # the warm-up App below: the wrappers launch nothing after it.
+    graphed = {}
 
     def host_timed(fn):
         torch.cuda.synchronize()
@@ -1818,7 +1849,8 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
             states.append(s)
         return frames, states
 
-    App(state0, cfg).run(4)  # warm-up: the caching host allocator's pinned blocks
+    tp.step_frame_jit.cache_clear()
+    App(state0, cfg).run(4)  # warm-up: the graph's capture, the caching host allocator's pinned blocks
     (ref, ref_states), got = drive(step_loop)
     expect_launches("step_frame loop", got, flagship, APP_FRAMES)
     ref_host = [f.cpu().numpy() for f in ref]
@@ -1856,14 +1888,30 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
                 app.run(APP_FRAMES)
         return run
 
-    loops = {"unpresented": unpresented, "present_queue": app_loop(), "sync_readback": sync_readback,
-             "delta_queue": app_loop(delta_present=True),
-             "render_batch": lambda: tp.render_batch(state0, cfg, APP_FRAMES)}
+    def present_queue_eager():  # App.run's loop before step_frame_jit
+        q, s = PresentQueue(depth=cfg.frames_in_flight), state0
+        for _ in range(APP_FRAMES):
+            s, f = tp.step_frame(s, cfg)
+            q.push(f)
+        list(q.drain())
+
+    def render_batch_eager():  # render_batch before step_frame_jit
+        s, frames = state0, []
+        for _ in range(APP_FRAMES):
+            s, f = tp.step_frame(s, cfg)
+            frames.append(f)
+        return s, torch.stack(frames)
+
+    loops = {"unpresented": (unpresented, flagship), "present_queue": (app_loop(), graphed),
+             "present_queue_eager": (present_queue_eager, flagship), "sync_readback": (sync_readback, flagship),
+             "delta_queue": (app_loop(delta_present=True), graphed),
+             "render_batch": (lambda: tp.render_batch(state0, cfg, APP_FRAMES), graphed),
+             "render_batch_eager": (render_batch_eager, flagship)}
     ms = {name: [] for name in loops}
     for _ in range(3):
-        for name, fn in loops.items():
+        for name, (fn, per_frame) in loops.items():
             (_, got), secs = host_timed(lambda: drive(fn))
-            expect_launches(name, got, flagship, APP_FRAMES)
+            expect_launches(name, got, per_frame, APP_FRAMES)
             ms[name].append(secs * 1e3 / APP_FRAMES)
     best = {name: min(v) for name, v in ms.items()}
 
@@ -1871,20 +1919,22 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
     d2h_ms = cuda_ms(lambda: host.copy_(ref[0], non_blocking=True), 20)
 
     queue, got = drive(lambda: check_presented("present", {}))
-    expect_launches("present", got, flagship, APP_FRAMES)
+    expect_launches("present", got, graphed, APP_FRAMES)
     emit({"phase": "app", "ok": True, "part": "present", "resolution": f"{cfg.width}x{cfg.height}",
           "frames": APP_FRAMES, "depth": cfg.frames_in_flight, "bit_equal_to_step_frame": True,
-          "delivered_fps": 1e3 / best["present_queue"], "unpresented_fps": 1e3 / best["unpresented"],
+          "delivered_fps": 1e3 / best["present_queue"], "delivered_fps_eager": 1e3 / best["present_queue_eager"],
+          "unpresented_fps": 1e3 / best["unpresented"],
           "sync_readback_fps": 1e3 / best["sync_readback"], "ms_per_frame_rounds": ms,
           "d2h_ms_per_frame": d2h_ms, "d2h_gb_per_s": ref[0].numel() / d2h_ms / 1e6,
           "frame_mib": ref[0].numel() / 2**20,
-          "timing": f"host clock around {APP_FRAMES} frames (App.run with its drain; a step_frame loop; one "
+          "timing": f"host clock around {APP_FRAMES} frames (App.run with its drain, graph replays; the same "
+                    "loop of step_frame calls into a PresentQueue; a step_frame loop; one "
                     "reading every frame back with .cpu()), each ending in a synchronise, presented frames "
                     "dropped; 3 rounds in turns, FPS from the best; device-to-host by CUDA events over 20 "
                     "copies into one pinned buffer"})
 
     queue, got = drive(lambda: check_presented("delta", {"delta_present": True}))
-    expect_launches("delta", got, flagship, APP_FRAMES)
+    expect_launches("delta", got, graphed, APP_FRAMES)
     emit({"phase": "app", "ok": True, "part": "delta", "frames": APP_FRAMES, "bit_equal_to_step_frame": True,
           "delivered_fps": 1e3 / best["delta_queue"],
           "bytes_transferred": queue.bytes_transferred, "bytes_full": queue.bytes_full,
@@ -1900,7 +1950,7 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
                 sink.flush()
                 return stats, sink.frames_written, sink.errors
         ((stats, written, errors), got), sink_s = host_timed(lambda: drive(run_sink))
-        expect_launches("sink", got, flagship, n_sink)
+        expect_launches("sink", got, graphed, n_sink)
         check(written == n_sink and errors == 0, f"app sink: {written} frames written, {errors} errors")
         for i in range(n_sink):
             check(np.array_equal(read_png(os.path.join(out_dir, f"frame_{i:05d}.png")), ref_host[i]),
@@ -1910,12 +1960,12 @@ def app_phase(tp, state0, cfg, c1_state0, c1_cfg, wrappers) -> dict:
           "delivered_fps_with_flush": n_sink / sink_s, "app_run_fps": stats.fps})
 
     (final, frames), got = drive(lambda: tp.render_batch(state0, cfg, 4))
-    expect_launches("render_batch", got, flagship, 4)
+    expect_launches("render_batch", got, graphed, 4)
     check(frames.shape == (4, cfg.height, cfg.width, 3)
           and all(torch.equal(frames[i], ref[i]) for i in range(4)), "app render_batch: frames differ")
     check(torch.equal(final.time, ref_states[3].time), "app render_batch: final clock differs")
     emit({"phase": "app", "ok": True, "part": "render_batch", "frames": 4, "bit_equal_to_step_frame": True,
-          "ms_per_frame": best["render_batch"]})
+          "ms_per_frame": best["render_batch"], "ms_per_frame_eager": best["render_batch_eager"]})
 
     for label, base_cfg, state, per_frame in (
         ("config1", c1_cfg, tp.animate(c1_state0, 0.3, c1_cfg), {"setup_triangles": 1, "raster_tiles": 1}),
@@ -2138,6 +2188,206 @@ def window_phase(tp, state0, wrappers, card: str) -> dict:
             "device_busy_ms_per_frame": {f: prof[f]["device_busy_ms"] for f in prof},
             "visibility_device_ms": graph, "seconds": {**seconds, "all": time.perf_counter() - t_path},
         })
+    return total
+
+
+# The graph phase: step_frame_jit on each main path, as (label, config
+# (None: config 1), the scene ("flagship" or "config1"), wrapper launches a
+# frame).
+GRAPH_PATHS = (
+    ("fused_flagship", dict(fused=True), "flagship", {"setup_triangles": 1, "fused_tiles": 1}),
+    ("config1", {}, "config1", {"setup_triangles": 1, "raster_tiles": 1}),
+    ("staged_flagship", dict(fused=False), "flagship", {"setup_triangles": 1, "raster_tiles": 1, "shade_tiles": 1}),
+    ("fused_listfed", dict(fused=True, inkernel_light_cull=False), "flagship",
+     {"setup_triangles": 1, "raster_depth": 1, "fused_tiles": 1}),
+    *((label, changes, "flagship", per_frame) for label, changes, per_frame in WINDOW_PATHS),
+    ("config1_supersample2", dict(supersample=2), "config1", {"setup_triangles": 1, "raster_tiles": 1}),
+    ("config4_fused_split_window", dict(fused=True, shadow_window_gather=True, **CONFIG4_FLAGS), "flagship",
+     WINDOW_PATHS[0][2]),
+)
+GRAPH_SWEEP_STEPS, GRAPH_SAMPLE_EVERY, GRAPH_TIMED_FRAMES = 64, 4, 30
+# Frames in the profiled window: an eager frame's ~400-1800 launches make
+# the profiler's tables slow to build, and the counts a frame are exact.
+GRAPH_PROFILED_FRAMES = {"graph": 10, "eager": 3}
+
+
+def device_perspective(fov_y, aspect, z_near, z_far, device):
+    """xmath.perspective_fov_lh as the port built it on the device before it
+    moved to the host (three 0-dim tensors copied from the host a frame)."""
+    import torch
+
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    h = 1.0 / torch.tan((f32(fov_y) * 0.5).double()).float()
+    w = h / aspect
+    zn, zf = f32(z_near), f32(z_far)
+    zr = zf / (zf - zn)
+    z0, z1 = f32(0.0), f32(1.0)
+    return torch.stack([torch.stack([w, z0, z0, z0]), torch.stack([z0, h, z0, z0]),
+                        torch.stack([z0, z0, zr, z1]), torch.stack([z0, z0, -zr * zn, z0])])
+
+
+def profile_frames(step, state, cfg, frames: int) -> dict:
+    """`frames` calls of step(state, cfg) under torch.profiler: host ms a
+    frame around the synchronised window, the device's busy ms (kernels,
+    copies and fills) and share, device kernels, copies and fills a frame,
+    and the host's launches, graph launches, copies and synchronising
+    calls a frame (stream and event synchronisations and synchronous copies;
+    the window's closing device synchronise is not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            state, _ = step(state, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    dev_events = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in dev_events) / 1e3
+    copies = sum(e.count for e in dev_events if "memcpy" in e.key.lower())
+    fills = sum(e.count for e in dev_events if "memset" in e.key.lower())
+    count = {e.key: e.count for e in avgs}
+    syncs = count.get("cudaStreamSynchronize", 0) + count.get("cudaEventSynchronize", 0) + count.get("cudaMemcpy", 0)
+    return {"host_ms_per_frame": wall_ms / frames, "device_busy_ms_per_frame": busy_ms / frames,
+            "busy_share": busy_ms / wall_ms,
+            "device_kernels_per_frame": (sum(e.count for e in dev_events) - copies - fills) / frames,
+            "device_copies_per_frame": copies / frames, "device_fills_per_frame": fills / frames,
+            "cuda_launch_kernel_per_frame": count.get("cudaLaunchKernel", 0) / frames,
+            "cuda_graph_launch_per_frame": count.get("cudaGraphLaunch", 0) / frames,
+            "cuda_memcpy_async_per_frame": count.get("cudaMemcpyAsync", 0) / frames,
+            "synchronising_calls_per_frame": syncs / frames}
+
+
+def graph_phase(tp, state0, c1_state0, wrappers, card: str) -> dict:
+    """step_frame_jit on the seven main paths, supersample=2 on config 1 and
+    the split config 4 with the window-gather PCF, at full size (1920x1080
+    on the flagship scene, config 1 at 1280x720), each run with every launch
+    count set to 0 just before its capture and read just after (the
+    warm-up frame and the capture: 2 a frame's launches; a replay launches
+    through no wrapper); returns those launches summed over the paths.  For
+    each path: the host-built perspective matrix bit-equal to the device
+    build it replaces; the capture's host seconds (warm-up frame, capture,
+    first replay) and the graph's private pool in MiB (reserved bytes over
+    the capture); at every 4th of the 64 orbit steps step_frame_jit bit-equal
+    to step_frame, frame and state, with no wrapper launch and the graph's
+    overflow count 0; ms/frame graphed and eager in turns (best of 3 passes
+    of 30 frames, CUDA events and the host clock); one profiled window of 10
+    graphed and 3 eager frames (device busy ms and share, device kernels,
+    copies and synchronising calls a frame).  Then JAX's overflow warning, printed once
+    per offending frame under replay."""
+    import contextlib
+    import io
+
+    import torch
+
+    from d3d12_deferred_renderer_tpu_torch import frame as tframe
+    from d3d12_deferred_renderer_tpu_torch import xmath
+
+    dev = state0.time.device
+    total = {k.__name__: 0 for k in wrappers}
+    leaves = tframe._leaves
+    for label, changes, scene, per_frame in GRAPH_PATHS:
+        t_path = time.perf_counter()
+        base = tp.REFERENCE_CONFIG if scene == "config1" else tp.FLAGSHIP_CONFIG
+        cfg = dataclasses.replace(base, **changes)
+        state = c1_state0 if scene == "config1" else state0
+        args = (cfg.fov_y, cfg.aspect, cfg.z_near, cfg.z_far)
+        persp = xmath.perspective_fov_lh(*args, device=dev)
+        check(torch.equal(persp.view(torch.int32), device_perspective(*args, dev).view(torch.int32)),
+              f"graph {label}: the host-built perspective matrix differs from the device build")
+        tp.step_frame_jit.cache_clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        reset_launches(wrappers)
+        t0 = time.perf_counter()
+        tp.step_frame_jit(state, cfg)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in wrappers}
+        for k, n in launches.items():
+            total[k] += n
+        expect = {**{k.__name__: 0 for k in wrappers}, **{k: 2 * n for k, n in per_frame.items()}}
+        check(launches == expect, f"graph {label}: launches at capture {launches}, expected {expect}")
+        pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        (graph,) = tframe._graphs.values()
+
+        sampled, overflow, s = [], [], state
+        for i in range(GRAPH_SWEEP_STEPS):
+            s = tp.animate(s, 2.0 * math.pi / GRAPH_SWEEP_STEPS, cfg)
+            if i % GRAPH_SAMPLE_EVERY != GRAPH_SAMPLE_EVERY - 1:
+                continue
+            reset_launches(wrappers)
+            g_state, g_frame = tp.step_frame_jit(s, cfg)
+            overflow.append(graph.overflow.clone())
+            check(all(k.launches == 0 for k in wrappers), f"graph {label}: step {i}: a wrapper launched")
+            e_state, e_frame = tp.step_frame(s, cfg)
+            check(torch.equal(g_frame, e_frame), f"graph {label}: step {i}: the frame differs from step_frame's")
+            check(all(torch.equal(a, b) for a, b in zip(leaves(g_state), leaves(e_state))),
+                  f"graph {label}: step {i}: the state differs from step_frame's")
+            sampled.append(i)
+        overflow = [int(o) for o in torch.stack(overflow)]
+        check(max(overflow) == 0, f"graph {label}: overflow {overflow}")
+        covered = float((g_frame.amax(-1) > 0).double().mean())
+        check(covered > 0.02, f"graph {label}: frame nearly blank")
+
+        passes = {"graph": [], "eager": []}
+        host = {"graph": [], "eager": []}
+        for p in range(3):
+            for mode in (("graph", "eager") if p % 2 == 0 else ("eager", "graph")):
+                step = tp.step_frame_jit if mode == "graph" else tp.step_frame
+                s = state
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                for _ in range(GRAPH_TIMED_FRAMES):
+                    s, _ = step(s, cfg)
+                end.record()
+                torch.cuda.synchronize()
+                passes[mode].append(start.elapsed_time(end) / GRAPH_TIMED_FRAMES)
+                host[mode].append((time.perf_counter() - t0) * 1e3 / GRAPH_TIMED_FRAMES)
+        prof = {mode: profile_frames(step, state, cfg, GRAPH_PROFILED_FRAMES[mode])
+                for mode, step in (("graph", tp.step_frame_jit), ("eager", tp.step_frame))}
+        check(prof["graph"]["synchronising_calls_per_frame"] == 0,
+              f"graph {label}: synchronising calls inside the graphed frame: {prof['graph']}")
+        emit({
+            "phase": "graph", "ok": True, "path": label, "card": card,
+            "resolution": f"{cfg.width}x{cfg.height}" + (f" x{cfg.supersample}" if cfg.supersample > 1 else ""),
+            "perspective_bit_equal": True, "capture_s": capture_s, "pool_mib": pool_mib,
+            "launches_at_capture": {k: n for k, n in launches.items() if n},
+            "sampled_steps": sampled, "frames_bit_equal": len(sampled), "graph_overflow": overflow,
+            "covered_frac": covered,
+            "ms_per_frame": {m: min(v) for m, v in passes.items()}, "passes_ms": passes, "passes_host_ms": host,
+            "profile": prof, "seconds": time.perf_counter() - t_path,
+        })
+        del graph
+        tp.step_frame_jit.cache_clear()
+        torch.cuda.empty_cache()
+
+    # JAX's overflow warning under replay: one triangle a tile overflows.
+    cfg = dataclasses.replace(tp.REFERENCE_CONFIG, width=256, height=64, max_tris_per_tile=1)
+    geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4, rings=8, segments=16))
+    state = tp.make_scene(geo, cfg, placement="grid", device=dev)
+    counts, s = [], state
+    for _ in range(3):
+        s = tp.animate(s, cfg.yaw_per_frame, cfg)
+        counts.append(int(tp.render_stats(s, cfg)[1]["overflow"]))
+    torch.cuda.synchronize()
+    tframe._pending_overflow.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        for _ in range(3):
+            state, _ = tp.step_frame_jit(state, cfg)
+            torch.cuda.synchronize()
+    want = "".join(tframe.OVERFLOW_WARNING.format(n=n) + "\n" for n in counts[:2])
+    check(min(counts) > 0 and out.getvalue() == want, f"graph warning: printed {out.getvalue()!r}, wanted {want!r}")
+    emit({"phase": "graph", "ok": True, "part": "overflow_warning", "frame_overflows": counts,
+          "warnings_printed": out.getvalue().count("WARNING"), "pending": len(tframe._pending_overflow)})
+    tframe._pending_overflow.clear()
+    tp.step_frame_jit.cache_clear()
     return total
 
 
@@ -2764,7 +3014,35 @@ def time_setup_blocks(sizes=(64, 128, 256), passes: int = 3) -> int:
     return 0
 
 
+def graph_only() -> int:
+    """The --graph mode (see the module docstring)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import kernel_wrappers
+    from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.library()
+    wrappers = kernel_wrappers()
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True)
+    _, state0 = flagship_scene(tp, cfg, dev)
+    _, c1_state0 = config1_scene(tp, tp.REFERENCE_CONFIG, dev)
+    app_phase(tp, state0, cfg, c1_state0, tp.REFERENCE_CONFIG, wrappers)
+    graph_phase(tp, state0, c1_state0, wrappers, card_name_and_limit())
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    print(card_name_and_limit(), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--graph"]:
+        sys.exit(graph_only())
     if sys.argv[1:2] == ["--time-staged"] and len(sys.argv) == 3:
         sys.exit(time_staged(sys.argv[2]))
     if sys.argv[1:2] == ["--time-bump"] and len(sys.argv) == 3:

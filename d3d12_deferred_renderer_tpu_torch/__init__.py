@@ -15,8 +15,10 @@ frame as row bands over a torch.distributed group (make_rows_group joins
 one; parallel.run_bands runs N ranks on one host); parallel.make_mesh lays
 the group out on named axes for render_tri_sharded (triangle shards
 composited sort-last) and the batch entry points, and parallel.dryrun
-holds each composition to the single-device frame.  render_batch renders N
-consecutive frames and cfg.supersample box-averages an s-times frame.  The
+holds each composition to the single-device frame.  step_frame_jit runs a
+frame as one CUDA graph, captured once a configuration and replayed;
+render_batch replays it N times into one batch, and cfg.supersample
+box-averages an s-times frame.  The
 application path: runtime.App (the frame loop with the triple-buffered
 PresentQueue or the DeltaPresentQueue), runtime.NativeFrameSink and
 PassProfiler, scene_io checkpoints, utils (PNG IO, validate_scene,
@@ -28,7 +30,7 @@ on the CPU.
 from .calibrate import autotune, autotune_shadow
 from .config import FLAGSHIP_CONFIG, REFERENCE_CONFIG, RendererConfig
 from .convert import arrays_from_state, scene_from_arrays
-from .frame import render, render_batch, render_gbuffer, render_stats, step_frame
+from .frame import render, render_batch, render_gbuffer, render_stats, step_frame, step_frame_jit
 from .models import build_instanced_geometry, build_scene_geometry, load_obj, procedural
 from .scene import (
     Camera,
@@ -55,6 +57,7 @@ __all__ = [
     "render_gbuffer",
     "render_batch",
     "step_frame",
+    "step_frame_jit",
     "render_sharded",
     "make_rows_group",
     "parallel",

@@ -4,7 +4,8 @@
 JAX package's, or this one's) into a dict of numpy arrays keyed by dotted
 field path; it touches no framework type, only attribute access and
 ``np.asarray``.  ``scene_from_arrays`` builds this package's SceneState from
-such a dict on a given device.  Together they feed both packages the same
+such a dict on a given device (through ``state_from_fields``, which
+frame.step_frame_jit also uses to rebuild a state from its tensors).  Together they feed both packages the same
 state, bit for bit.
 """
 from __future__ import annotations
@@ -70,17 +71,23 @@ def scene_from_arrays(arrays: dict, device=None) -> SceneState:
         dtype = torch.int32 if key == "geometry.tri_mesh_id" else torch.float32
         return torch.tensor(a, dtype=dtype, device=device)
 
+    return state_from_fields(t)
+
+
+def state_from_fields(get) -> SceneState:
+    """This package's SceneState holding get(path) at each dotted path of
+    FIELDS."""
     def group(cls, prefix):
         names = [k.split(".", 1)[1] for k in FIELDS if k.startswith(prefix + ".")]
-        return cls(**{n: t(f"{prefix}.{n}") for n in names})
+        return cls(**{n: get(f"{prefix}.{n}") for n in names})
 
     return SceneState(
         geometry=group(GeometryBuffers, "geometry"),
-        position=t("position"),
-        orientation=t("orientation"),
-        scale=t("scale"),
+        position=get("position"),
+        orientation=get("orientation"),
+        scale=get("scale"),
         materials=group(Materials, "materials"),
         camera=group(Camera, "camera"),
         lights=group(Lights, "lights"),
-        time=t("time"),
+        time=get("time"),
     )

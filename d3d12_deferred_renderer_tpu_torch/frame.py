@@ -22,17 +22,22 @@ read as "on the card".  Two paths:
   package's CPU path and its golden images use.
 
 A kernel's wrapper runs the kernel on CUDA tensors and its plain version on
-CPU tensors.  PyTorch runs the frame eagerly, one launch after another on
-the current stream.
+CPU tensors.  step_frame, render and render_stats run the frame eagerly, one
+launch after another on the current stream.  step_frame_jit (JAX's jitted
+step_frame) captures animate + render_stats once a configuration as a CUDA
+graph and replays it: one launch a frame from the host, no value read back
+inside it; App.run and render_batch run through it.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Tuple
 
 import torch
 
 from .config import RendererConfig
+from .convert import FIELDS, field, state_from_fields
 from .ops import post
 from .ops.bump import apply_normal_mapping
 from .ops.fused import render_fused
@@ -46,7 +51,7 @@ from .ops.raster_tiles import rasterize_binned
 from .ops.shadows import render_shadow_map, shadow_visibility
 from .ops.transform import setup_frame_triangles
 from .scene import SceneState, animate
-from .utils.debug import check_finite
+from .utils.debug import check_finite, layer_active
 from .xmath import divf
 
 
@@ -179,17 +184,178 @@ def step_frame(state: SceneState, cfg: RendererConfig) -> Tuple[SceneState, torc
     return state, render(state, cfg)
 
 
+# ---- step_frame_jit: the frame captured once as a CUDA graph ----
+
+GRAPH_CACHE_SIZE = 8  # captured frames kept, least recently used dropped first
+
+
+def _leaves(state: SceneState) -> list:
+    """The state's tensors, in the order of convert.FIELDS."""
+    return [field(state, path) for path in FIELDS]
+
+
+def _rebuild(leaves) -> SceneState:
+    """The SceneState holding `leaves`, in the order of convert.FIELDS."""
+    return state_from_fields(dict(zip(FIELDS, leaves)).__getitem__)
+
+
+def _frame_program(state: SceneState, cfg: RendererConfig):
+    """What one captured frame computes: animate + render_stats (the
+    overflow warning is queued on the host after each replay)."""
+    state = animate(state, cfg.yaw_per_frame, cfg)
+    frame, stats = render_stats(state, cfg)
+    return state, frame, stats["overflow"]
+
+
+class _CapturedFrame:
+    """One configuration's frame (animate + render_stats) captured in a CUDA
+    graph on static input and output buffers.
+
+    load(state) copies the caller's leaves into the static inputs, skipping
+    a leaf that is the very tensor, unchanged since (its _version), that was
+    copied there last; replay() runs the graph; feed_back() makes the
+    animated state the next replay's input (render_batch).  A leaf that the
+    frame passes through unchanged comes back as the caller's own tensor, as
+    step_frame returns it; every other output is cloned, so nothing
+    returned aliases memory that a later replay writes."""
+
+    def __init__(self, state: SceneState, cfg: RendererConfig):
+        leaves = _leaves(state)
+        self.cfg = cfg
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in leaves]
+        # (tensor, _version) each input was copied from; holding the tensor
+        # keeps its memory from being reused by another one.
+        self._src = [None] * len(leaves)
+        self.load(state)
+        static_state = _rebuild(self.inputs)
+        dev = self.inputs[0].device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                # Warm-up: builds the kernels and fills every lru_cache the
+                # frame reads, so that the capture holds device work only.
+                _frame_program(static_state, cfg)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                # thread_local: a host sync in this thread breaks the capture;
+                # another thread's (a present queue's wait) does not.
+                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                    out_state, self.frame, self.overflow = _frame_program(static_state, cfg)
+            except RuntimeError as e:  # torch.AcceleratorError among them
+                raise RuntimeError(
+                    f"step_frame_jit: capturing the frame failed ({type(e).__name__}: {e}); a host read "
+                    "or a host-to-device copy inside the frame cannot be captured") from e
+        self.outputs = _leaves(out_state)
+        self._passed = [o is i for o, i in zip(self.outputs, self.inputs)]
+
+    def load(self, state: SceneState) -> None:
+        for k, (leaf, buf) in enumerate(zip(_leaves(state), self.inputs)):
+            src = self._src[k]
+            if src is not None and src[0] is leaf and src[1] == leaf._version:
+                continue
+            buf.copy_(leaf)
+            self._src[k] = (leaf, leaf._version)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        if self.cfg.overflow_warn:
+            _warn_overflow(self.overflow)
+
+    def feed_back(self) -> None:
+        for k, passed in enumerate(self._passed):
+            if not passed:
+                self.inputs[k].copy_(self.outputs[k])
+                self._src[k] = None
+
+    def state_out(self, state: SceneState) -> SceneState:
+        """The animated state of the last replay, for a load of `state`."""
+        return _rebuild([c if passed else o.clone()
+                         for c, o, passed in zip(_leaves(state), self.outputs, self._passed)])
+
+
+_graphs: "collections.OrderedDict[tuple, _CapturedFrame]" = collections.OrderedDict()
+
+
+def _captured(state: SceneState, cfg: RendererConfig) -> _CapturedFrame:
+    """The captured frame for cfg and the state's device, shapes and dtypes,
+    captured at the first call (refused before capture for a configuration
+    that cannot be captured yet)."""
+    leaves = _leaves(state)
+    key = (cfg, leaves[0].device, tuple((tuple(t.shape), t.dtype) for t in leaves))
+    if key in _graphs:
+        _graphs.move_to_end(key)
+        return _graphs[key]
+    if not cfg.use_pallas:
+        raise NotImplementedError(
+            "step_frame_jit cannot capture this frame on the card yet: use_pallas=False runs the plain "
+            "versions, whose per-slot loops read tile counts on the host (ROADMAP.md Queue 1 item 7)")
+    graph = _CapturedFrame(state, cfg)
+    _graphs[key] = graph
+    while len(_graphs) > GRAPH_CACHE_SIZE:
+        _graphs.popitem(last=False)
+    return graph
+
+
+def _eager(state: SceneState) -> bool:
+    """Frames on the CPU, and under utils.debug.debug_layer, run op by op."""
+    return state.time.device.type != "cuda" or layer_active()
+
+
+def step_frame_jit(state: SceneState, cfg: RendererConfig) -> Tuple[SceneState, torch.Tensor]:
+    """step_frame as one program, the counterpart of JAX's jitted step_frame
+    (cfg static): on the card the first call for a configuration and a
+    state's device, shapes and dtypes warms up once on a side stream and
+    captures animate + render_stats in a CUDA graph; every call replays it
+    after copying in the leaves of the state that are not already there.
+    No value comes back to the host inside the frame; with
+    cfg.overflow_warn the overflow count is copied out after the replay and
+    printed as render prints it.  Value semantics: the state and frame
+    returned alias nothing that a later call writes, the caller's state is
+    never written, and any state gives exactly step_frame's result.
+
+    On a CPU state it runs step_frame (the caller chose the CPU; JAX's jit
+    runs there too), and under utils.debug.debug_layer it runs step_frame
+    op by op, as jax_debug_nans re-runs a jitted function op by op.  There
+    is no other fallback: a configuration that cannot be captured yet
+    raises NotImplementedError before capture, and a capture that fails
+    raises RuntimeError.  step_frame_jit.cache_clear() drops the captured
+    frames (at most GRAPH_CACHE_SIZE are kept) and their memory pools."""
+    if _eager(state):
+        return step_frame(state, cfg)
+    graph = _captured(state, cfg)
+    graph.load(state)
+    graph.replay()
+    return graph.state_out(state), graph.frame.clone()
+
+
+step_frame_jit.cache_clear = _graphs.clear
+
+
 def render_batch(state: SceneState, cfg: RendererConfig, num_frames: int):
     """`num_frames` consecutive animated frames -> (final state, uint8
-    [num_frames, H, W, 3]): step_frame in a loop on the state's device, the
-    frames stacked (JAX scans step_frame inside one jitted program).  With
-    num_frames 0 the state comes back as it was, with an empty [0, H, W, 3]
-    batch, as JAX's scan of length 0 returns."""
-    frames = []
-    for _ in range(num_frames):
-        state, frame = step_frame(state, cfg)
-        frames.append(frame)
-    if not frames:
+    [num_frames, H, W, 3]).  On the card: num_frames replays of
+    step_frame_jit's graph, each frame copied into one preallocated batch
+    and each animated state fed to the next replay on the device (JAX scans
+    step_frame inside one jitted program).  On the CPU and under
+    debug_layer: step_frame in a loop, the frames stacked.  With num_frames
+    0 the state comes back as it was, with an empty [0, H, W, 3] batch, as
+    JAX's scan of length 0 returns."""
+    if num_frames == 0:
         return state, torch.empty((0, cfg.height, cfg.width, 3), dtype=torch.uint8, device=state.time.device)
-    return state, torch.stack(frames)
-
+    if _eager(state):
+        frames = []
+        for _ in range(num_frames):
+            state, frame = step_frame(state, cfg)
+            frames.append(frame)
+        return state, torch.stack(frames)
+    graph = _captured(state, cfg)
+    out = torch.empty((num_frames, *graph.frame.shape), dtype=graph.frame.dtype, device=graph.frame.device)
+    graph.load(state)
+    for i in range(num_frames):
+        if i:
+            graph.feed_back()
+        graph.replay()
+        out[i].copy_(graph.frame)
+    return graph.state_out(state), out

@@ -3,9 +3,12 @@
 The counterpart of d3d12_deferred_renderer_tpu/runtime/app.py.  Headless by
 design: the 'window' is a PNG or frame-callback sink fed by the
 triple-buffered PresentQueue.  `App.run(n)` replaces the reference's GLFW
-loop: animate -> render (frame.step_frame, launched on the state's device)
--> present, with the host ahead of the device by up to `frames_in_flight`
-frames.
+loop: animate -> render (frame.step_frame_jit: on the card one CUDA graph
+replay a frame, as JAX's loop calls its jitted step) -> present, with the
+host ahead of the device by up to `frames_in_flight` frames.  Each frame
+that step_frame_jit returns is a clone of the graph's output, so its copy to
+the host, queued after the replay on the same stream, never races the next
+replay.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import time
 from typing import Callable, Optional
 
 from ..config import RendererConfig
-from ..frame import step_frame
+from ..frame import step_frame_jit
 from ..scene import SceneState
 from .delta import DeltaPresentQueue
 from .present import PresentQueue
@@ -65,7 +68,7 @@ class App:
         before it returns.  Stats accumulate over runs."""
         t0 = time.perf_counter()
         for _ in range(num_frames):
-            self.state, frame = step_frame(self.state, self.cfg)
+            self.state, frame = step_frame_jit(self.state, self.cfg)
             self._present(self.queue.push(frame))
         for host in self.queue.drain():
             self._present(host)

@@ -44,6 +44,13 @@ def debug_layer(nans: bool = True, infs: bool = True):
         _LAYER.reset(token)
 
 
+def layer_active() -> bool:
+    """Whether the caller is inside a debug_layer scope: the frame then
+    reads its stages on the host, so frame.step_frame_jit runs it op by
+    op instead of replaying a CUDA graph."""
+    return _LAYER.get() is not None
+
+
 def check_finite(stage: str, *tensors: torch.Tensor) -> None:
     """Inside a debug_layer scope, raise FloatingPointError if a float
     tensor among `tensors` holds a NaN (or an Inf) the scope checks for;

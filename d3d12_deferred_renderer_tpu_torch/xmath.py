@@ -16,6 +16,8 @@ two choices that keep results identical across devices:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = [
@@ -163,17 +165,28 @@ def look_at_lh(eye: torch.Tensor, at: torch.Tensor, up: torch.Tensor) -> torch.T
     ])
 
 
+@functools.lru_cache(maxsize=None)
 def perspective_fov_lh(fov_y, aspect, z_near, z_far, device=None) -> torch.Tensor:
     """XMMatrixPerspectiveFovLH: h = cot(fov_y/2), w = h/aspect, clip z in
-    [0, 1]; fRange = zf / (zf - zn) in float32 like DirectXMath."""
-    fov = _f32(fov_y, device)
+    [0, 1]; fRange = zf / (zf - zn) in float32 like DirectXMath.
+
+    Built on the host in float32 (tan in float64, rounded once) and copied
+    to `device` once per argument set: a frame then makes no host-to-device
+    copy, so it can be captured in a CUDA graph.  The tensor is shared by
+    every caller with these arguments: never write into it."""
+    m = _perspective_host(float(fov_y), float(aspect), float(z_near), float(z_far))
+    return m.to(device) if device is not None else m
+
+
+def _perspective_host(fov_y: float, aspect: float, z_near: float, z_far: float) -> torch.Tensor:
+    fov = _f32(fov_y, None)
     h = 1.0 / _rounded(torch.tan, fov * 0.5)
     w = h / aspect
-    zn = _f32(z_near, device)
-    zf = _f32(z_far, device)
+    zn = _f32(z_near, None)
+    zf = _f32(z_far, None)
     zr = zf / (zf - zn)
-    z0 = torch.zeros((), dtype=F32, device=device)
-    z1 = torch.ones((), dtype=F32, device=device)
+    z0 = torch.zeros((), dtype=F32)
+    z1 = torch.ones((), dtype=F32)
     return torch.stack([
         torch.stack([w, z0, z0, z0]),
         torch.stack([z0, h, z0, z0]),

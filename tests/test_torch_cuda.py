@@ -1154,11 +1154,18 @@ def test_delta_queue_bit_identical_on_the_card():
 
 @pytest.mark.cuda
 def test_render_batch_on_the_card():
+    """render_batch replays step_frame_jit's graph: the wrappers launch their
+    kernels only in the warm-up frame and the capture (2), the frames are
+    replays, bit-equal to step_frame's; a second batch replays the cached
+    graph."""
     dev = _cuda()
     state = _scene(FUSED_SMALL, dev)
+    tp.step_frame_jit.cache_clear()
     before = fused.fused_tiles.launches
     final, frames = tp.render_batch(state, FUSED_SMALL, 4)
-    assert fused.fused_tiles.launches - before == 4
+    assert fused.fused_tiles.launches - before == 2
+    assert torch.equal(tp.render_batch(state, FUSED_SMALL, 4)[1], frames)
+    assert fused.fused_tiles.launches - before == 2
     s = state
     for i in range(4):
         s, f = tp.step_frame(s, FUSED_SMALL)
@@ -1181,3 +1188,153 @@ def test_supersample_on_the_card(config):
     want = (q + ((r > 2) | ((r == 2) & (q % 2 == 1))).to(torch.int64)).to(torch.uint8)
     assert torch.equal(got, want)
     assert int(stats["overflow"]) == 0
+
+
+# ---- step_frame_jit: the frame captured once as a CUDA graph and replayed ----
+
+def _graph_path(name, dev):
+    """(cfg, state) of a main path at a small size: the seven of PERF.md
+    section 4, supersample=2 on config 1 and the window-gather PCF."""
+    if name.startswith("config1"):
+        cfg = dataclasses.replace(tp.REFERENCE_CONFIG, width=320, height=180,
+                                  supersample=2 if name == "config1_ss2" else 1)
+        geo = tp.build_scene_geometry([tp.procedural.cube(1.0), tp.procedural.cube(0.7)])
+        return cfg, tp.make_scene(geo, cfg, device=dev)
+    cfg = {
+        "fused_flagship": FUSED_SMALL,
+        "staged_flagship": dataclasses.replace(FUSED_SMALL, fused=False),
+        "fused_listfed": dataclasses.replace(FUSED_SMALL, inkernel_light_cull=False),
+        "config4_fused_split": CONFIG4,
+        "config4_fused_unsplit": dataclasses.replace(CONFIG4, deferred_directional=False, inkernel_light_cull=False),
+        "config4_staged": dataclasses.replace(CONFIG4, fused=False),
+        "config4_window": dataclasses.replace(WINDOW_CONFIG4, shadow_window_gather=True),
+    }[name]
+    return cfg, _scene(cfg, dev, n_lights=16)
+
+
+GRAPH_PATHS = ["fused_flagship", "config1", "staged_flagship", "fused_listfed", "config4_fused_split",
+               "config4_fused_unsplit", "config4_staged", "config1_ss2", "config4_window"]
+
+
+def _states_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(tp.frame._leaves(a), tp.frame._leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graphed_frames_equal_eager(path):
+    """8 frames of step_frame_jit bit-equal to 8 of step_frame from the same
+    state, the states too, overflow 0 from the graph's count."""
+    dev = _cuda()
+    cfg, state = _graph_path(path, dev)
+    tp.step_frame_jit.cache_clear()
+    a = b = state
+    for i in range(8):
+        a, fa = tp.step_frame(a, cfg)
+        b, fb = tp.step_frame_jit(b, cfg)
+        assert torch.equal(fa, fb), (path, i)
+        assert _states_equal(a, b), (path, i)
+    (graph,) = tp.frame._graphs.values()
+    assert int(graph.overflow) == 0
+    assert float((fb.amax(-1) > 0).double().mean()) > 0.02
+
+
+@pytest.mark.cuda
+def test_graphed_frame_of_any_state():
+    """Two scenes of one shape (other lights and materials) and an older
+    state, interleaved through one captured graph: each gives step_frame's
+    frame and state."""
+    dev = _cuda()
+    tp.step_frame_jit.cache_clear()
+    geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4, rings=8, segments=16))
+    scenes = [tp.make_scene(geo, FUSED_SMALL, placement="grid", device=dev,
+                            lights=tp.random_point_lights(24, seed=seed, cfg=FUSED_SMALL, radius=3.0, device=dev),
+                            materials=tp.Materials.varied(geo.num_meshes, seed=seed, device=dev))
+              for seed in (1, 2)]
+    older = tp.animate(scenes[0], 0.4, FUSED_SMALL)
+    for state in (scenes[0], scenes[1], older, scenes[0], older, scenes[1]):
+        a, fa = tp.step_frame(state, FUSED_SMALL)
+        b, fb = tp.step_frame_jit(state, FUSED_SMALL)
+        assert torch.equal(fa, fb) and _states_equal(a, b)
+    assert len(tp.frame._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_graphed_results_are_values():
+    """What step_frame_jit returns aliases nothing that a later call writes,
+    and the caller's state is never written."""
+    dev = _cuda()
+    tp.step_frame_jit.cache_clear()
+    state = _scene(FUSED_SMALL, dev)
+    before = [t.clone() for t in tp.frame._leaves(state)]
+    s1, f1 = tp.step_frame_jit(state, FUSED_SMALL)
+    kept = (f1.clone(), [t.clone() for t in tp.frame._leaves(s1)])
+    s2, f2 = tp.step_frame_jit(s1, FUSED_SMALL)
+    tp.step_frame_jit(s2, FUSED_SMALL)
+    torch.cuda.synchronize()
+    assert not torch.equal(f1, f2)
+    assert torch.equal(f1, kept[0]) and all(torch.equal(x, y) for x, y in zip(tp.frame._leaves(s1), kept[1]))
+    assert all(torch.equal(x, y) for x, y in zip(tp.frame._leaves(state), before))
+    # The leaves the frame passes through come back as the caller's own.
+    assert s1.geometry.fv_pos_cols is state.geometry.fv_pos_cols and s1.time is not state.time
+
+
+@pytest.mark.cuda
+def test_host_read_in_the_frame_fails_the_capture(monkeypatch):
+    """A host read injected into the captured region raises: no eager
+    fallback, nothing cached; the next capture works."""
+    dev = _cuda()
+    tp.step_frame_jit.cache_clear()
+    state = _scene(FUSED_SMALL, dev)
+    animate = tp.frame.animate
+    monkeypatch.setattr(tp.frame, "animate", lambda s, y, c: (float(s.time), animate(s, y, c))[1])
+    with pytest.raises(RuntimeError, match="capturing the frame failed"):
+        tp.step_frame_jit(state, FUSED_SMALL)
+    assert not tp.frame._graphs
+    monkeypatch.setattr(tp.frame, "animate", animate)
+    assert torch.equal(tp.step_frame_jit(state, FUSED_SMALL)[1], tp.step_frame(state, FUSED_SMALL)[1])
+
+
+@pytest.mark.cuda
+def test_graph_refuses_and_debug_layer_runs_eager():
+    """use_pallas=False (the plain versions' host loops) is refused before
+    capture; under debug_layer the frame runs op by op, uncaptured."""
+    from d3d12_deferred_renderer_tpu_torch.utils import debug_layer
+
+    dev = _cuda()
+    tp.step_frame_jit.cache_clear()
+    cfg = dataclasses.replace(tp.REFERENCE_CONFIG, width=128, height=64, use_pallas=False)
+    geo = tp.build_scene_geometry([tp.procedural.cube(1.0)])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+        tp.step_frame_jit(tp.make_scene(geo, cfg, device=dev), cfg)
+    state = _scene(FUSED_SMALL, dev)
+    with debug_layer():
+        _, got = tp.step_frame_jit(state, FUSED_SMALL)
+    assert not tp.frame._graphs
+    assert torch.equal(got, tp.step_frame(state, FUSED_SMALL)[1])
+
+
+@pytest.mark.cuda
+def test_overflow_warning_under_replay(capsys):
+    """The graph computes each frame's overflow count; the host copies it
+    out after the replay and prints JAX's message once per offending frame,
+    at a later call once that frame has finished (as render does)."""
+    dev = _cuda()
+    tp.step_frame_jit.cache_clear()
+    cfg = dataclasses.replace(tp.REFERENCE_CONFIG, width=256, height=64, max_tris_per_tile=1)
+    geo = tp.build_scene_geometry(tp.procedural.benchmark_meshes(n=4, rings=8, segments=16))
+    state = tp.make_scene(geo, cfg, placement="grid", device=dev)
+    counts, s = [], state
+    for _ in range(3):
+        s = tp.animate(s, cfg.yaw_per_frame, cfg)
+        counts.append(int(tp.render_stats(s, cfg)[1]["overflow"]))
+    assert min(counts) > 0
+    torch.cuda.synchronize()
+    tp.frame._pending_overflow.clear()
+    capsys.readouterr()
+    for _ in range(3):
+        state, _ = tp.step_frame_jit(state, cfg)
+        torch.cuda.synchronize()
+    want = "".join(tp.frame.OVERFLOW_WARNING.format(n=n) + "\n" for n in counts[:2])
+    assert capsys.readouterr().out == want
+    assert len(tp.frame._pending_overflow) == 1

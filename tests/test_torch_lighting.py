@@ -1,19 +1,17 @@
-"""PyTorch port: G-buffer, lighting, light cull, the G-buffer lighting kernel's
-plain version and post, against the JAX package.
+"""PyTorch port: G-buffer, lighting and post, against the JAX package.
 
 Both packages take the same inputs: a G-buffer rasterized by JAX from the
 small benchmark scene (and a random one, as tests/test_lighting.py builds),
 its view-projection, and numpy-made lights.  Contracts:
 
 * encode_gbuffer / decode_gbuffer bit-equal;
-* shade_lambert within 1e-6, shade_pbr_tiled within rtol 2e-4, atol 2e-5;
-* cull_lights_to_tiles ids, counts and overflow exactly equal, on square and
-  8 x 128 tiles, including a case whose tiles overflow their cap;
-* the lighting kernel's plain version (shade_tiles_reference, through
-  shade_pbr_tiled_kernel on CPU tensors) against JAX shade_pbr_tiled_pallas
-  (interpret=True), with and without a visibility plane, at the tolerance of
-  test_lighting.py's kernel test (rtol 2e-4, atol 2e-5), equal overflow;
+* shade_lambert within 1e-6, shade_pbr_tiled within rtol 2e-4, atol 2e-5,
+  and shade_pbr on a band of rows;
 * post (Reinhard, gamma, uint8) within float32 rounding, uint8 equal.
+
+The light cull and the lighting kernel's plain version are in
+tests/test_torch_light_cull.py (a port test file collects at most 12
+tests, see tests/test_torch_names.py).
 """
 import dataclasses
 
@@ -27,14 +25,12 @@ import d3d12_deferred_renderer_tpu as dxr
 from d3d12_deferred_renderer_tpu.ops import gbuffer as jgb
 from d3d12_deferred_renderer_tpu.ops import lighting as jl
 from d3d12_deferred_renderer_tpu.ops import post as jpost
-from d3d12_deferred_renderer_tpu.ops.lighting_pallas import shade_pbr_tiled_pallas
 from d3d12_deferred_renderer_tpu.ops.raster_ref import rasterize_packed as jax_rasterize
 from d3d12_deferred_renderer_tpu.ops.transform import setup_frame_triangles as jax_setup
 
 import d3d12_deferred_renderer_tpu_torch as tp
 from d3d12_deferred_renderer_tpu_torch.ops import gbuffer as tgb
 from d3d12_deferred_renderer_tpu_torch.ops import lighting as tl
-from d3d12_deferred_renderer_tpu_torch.ops import lighting_cuda
 from d3d12_deferred_renderer_tpu_torch.ops import post as tpost
 from d3d12_deferred_renderer_tpu_torch.ops.raster_ref import FragmentPlanes
 
@@ -44,16 +40,6 @@ TCFG = tp.RendererConfig(**dataclasses.asdict(CFG))
 TOL = dict(rtol=2e-4, atol=2e-5)
 
 
-_jax_cull = jax.jit(
-    lambda depth, li, cfg, vp, tile, cap: jl.cull_lights_to_tiles(depth, li, cfg, vp, tile,
-                                                                  max_per_tile=cap),
-    static_argnums=(2, 4, 5),
-)
-_jax_lighting_kernel = jax.jit(
-    lambda gb, li, cfg, vp, eye, vis: shade_pbr_tiled_pallas(
-        gb, li, cfg, vp, eye, shadow_visibility=vis, interpret=True, return_overflow=True),
-    static_argnums=(2,),
-)
 _jax_shade_pbr_tiled = jax.jit(
     lambda gb, li, cfg, vp, eye: jl.shade_pbr_tiled(gb, li, cfg, vp, eye, tile=32,
                                                     return_overflow=True),
@@ -173,41 +159,6 @@ def test_shade_pbr_band_matches_jax(scene):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     whole = tl.shade_pbr(scene["tg"], tli, TCFG, scene["tvp"], scene["teye"])
     assert torch.equal(got, whole[16:48])
-    assert float(got.max()) > 0.0
-
-
-@pytest.mark.parametrize("tile,cap,radius", [
-    (32, 64, 3.0), ((8, 128), 32, 3.0), ((8, 128), 4, 6.0),
-], ids=["square32", "8x128", "overflow"])
-@pytest.mark.parametrize("which", ["scene", "random"])
-def test_cull_lights_to_tiles_exact(scene, which, tile, cap, radius):
-    jg, tg = _gbuffers(scene, which)
-    jli, tli = _lights(radius=radius)
-    ref = _jax_cull(jg.depth, jli, CFG, scene["vp"], tile, cap)
-    got = tl.cull_lights_to_tiles(tg.depth, tli, TCFG, scene["tvp"], tile, max_per_tile=cap)
-    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(ref.indices))
-    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(ref.counts))
-    assert int(got.overflow) == int(ref.overflow)
-    assert (int(got.overflow) > 0) == (cap == 4)
-    assert int(got.counts.sum()) > 0
-
-
-@pytest.mark.parametrize("vis", [False, True], ids=["no_vis", "vis"])
-@pytest.mark.parametrize("which", ["scene", "random"])
-def test_lighting_kernel_plain_matches_jax_kernel(scene, which, vis):
-    jg, tg = _gbuffers(scene, which)
-    jli, tli = _lights()
-    v = np.random.default_rng(11).uniform(0, 1, (64, 256)).astype(np.float32) if vis else None
-    ref, jov = _jax_lighting_kernel(jg, jli, CFG, scene["vp"], scene["eye"],
-                                    None if v is None else jnp.asarray(v))
-    before = lighting_cuda.shade_tiles.launches
-    got, tov = lighting_cuda.shade_pbr_tiled_kernel(
-        tg, tli, TCFG, scene["tvp"], scene["teye"], return_overflow=True,
-        shadow_visibility=None if v is None else torch.from_numpy(v),
-    )
-    assert lighting_cuda.shade_tiles.launches == before  # CPU: the plain version
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
-    assert int(tov) == int(jov) == 0
     assert float(got.max()) > 0.0
 
 

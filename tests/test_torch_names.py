@@ -13,7 +13,11 @@ besides its pipeline, against the JAX package on the same inputs.
   (XLA contracts the scan's perspective interpolation into fused
   multiply-adds; the port's staged frames are pinned through the Pallas
   raster's interpret mode, tests/test_torch_raster.py).
+
+And the guard of the port's test files: none but tests/test_torch_cuda.py
+collects more than 12 tests.
 """
+import collections
 import dataclasses
 
 import jax.numpy as jnp
@@ -101,3 +105,26 @@ def test_rasterize_matches_jax():
         else:
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=4.8e-7)
     assert (got.mesh_id.numpy() >= 0).mean() > 0.3
+
+
+# Under pytest-xdist every worker imports every test module when it
+# collects, so this sets torch's CPU threads in each worker: six workers of
+# eight OpenMP threads each, beside JAX's own pools, oversubscribe the
+# cores, and a plain-version test then takes 10-75 times its time alone.
+torch.set_num_threads(1)
+
+# A port test file collects at most this many tests.  pytest-xdist's
+# --dist loadfile queues files by their count of collected tests, largest
+# first; the suite's longest file, the JAX package's tests/test_tri_sharded.py
+# (13 tests), must start among the first.  tests/test_torch_cuda.py is
+# exempt: without a card its tests skip in seconds.
+PORT_FILE_TESTS = 12
+
+
+def test_port_test_files_collect_at_most_12(request):
+    """Holds for every port test file in the session (trivially when one
+    file runs alone)."""
+    counts = collections.Counter(item.path.name for item in request.session.items)
+    big = {name: n for name, n in counts.items()
+           if name.startswith("test_torch_") and name != "test_torch_cuda.py" and n > PORT_FILE_TESTS}
+    assert not big, f"port test files over {PORT_FILE_TESTS} tests (split them): {big}"

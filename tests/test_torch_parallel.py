@@ -24,9 +24,13 @@ scene arrays.  Contracts (tests/test_parallel.py, tests/test_band_raster.py):
   the staged config-4 band (the bump kernel on the band's raster planes,
   shadows, bloom), within the PBR contract of the port's single-device
   frame;
-* every refusal of _check_band_safe, the height check, a failing rank
-  failing run_bands, and run_bands without a device refusing to start
-  where there is no card.  The CPU ranks here pass device="cpu".
+* a failing rank failing run_bands, and run_bands without a device
+  refusing to start where there is no card.  The CPU ranks here pass
+  device="cpu".
+
+Every refusal of _check_band_safe and the height check are in
+tests/test_torch_band_refusals.py (a port test file collects at most 12
+tests, see tests/test_torch_names.py).
 """
 import dataclasses
 
@@ -199,34 +203,6 @@ def test_sharded_branches_follow_jax():
             with pytest.raises(StopIteration):
                 sharded._render_band(state, cfg, 0, band, g)
     assert calls == ["fused", "tiles", "tiles", "reference"]
-
-
-def _one_of_n_bands(mp, n):
-    """render_sharded as rank 0 of n, without a process group (every check
-    below raises before the first collective)."""
-    mp.setattr(sharded.BandGroup, "of", staticmethod(lambda group=None: sharded.BandGroup(None, 0, n, True)))
-
-
-@pytest.mark.parametrize("change,bands,match", [
-    (dict(bloom=True, shading="pbr"), 4, "downsample"),        # 32 / 4 = 8 rows: bloom fine
-    (dict(bloom=True, shading="pbr"), 16, "downsample"),       # 2 rows
-    (dict(normal_mapping=True, shading="pbr"), 8, "tile_h"),   # 4 rows
-    (dict(shadows=True, shading="pbr", shadow_vis_downsample=2), 2, "shadow_vis_downsample"),
-    (dict(height=30), 4, "not divisible"),
-], ids=["bloom_ok", "bloom", "normal_mapping", "shadow_vis_downsample", "height"])
-def test_band_refusals_are_loud(change, bands, match):
-    cfg = tp.RendererConfig(**{**dict(width=128, height=32, use_pallas=False), **change})
-    band = cfg.height // bands
-    if match == "downsample" and band % 4 == 0:
-        sharded._check_band_safe(cfg, band)  # accepted
-        return
-    if match != "not divisible":
-        with pytest.raises(ValueError, match=match):
-            sharded._check_band_safe(cfg, band)
-    with pytest.MonkeyPatch.context() as mp:
-        _one_of_n_bands(mp, bands)
-        with pytest.raises(ValueError, match=match):
-            sharded.render_sharded(None, cfg)
 
 
 def test_run_bands_needs_a_card_by_default(monkeypatch):

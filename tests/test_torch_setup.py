@@ -7,7 +7,9 @@ structural fields exact, float fields bit-equal or within rounding
 tolerance.  The port writes its matrix products and sums in a fixed order,
 so on these scenes it is in fact bit-equal to the op-by-op JAX setup.  The
 instanced_600 case (600 meshes, each triangle's matrices selected by its
-mesh id) pins the many-mesh contract.
+mesh id) pins the many-mesh contract.  The winding and cull modes are in
+tests/test_torch_winding.py (a port test file collects at most 12 tests,
+see tests/test_torch_names.py).
 """
 import dataclasses
 
@@ -94,24 +96,6 @@ def test_near_clip_case_clips(pairs):
     ref, got = pairs["near_clip"]
     assert np.asarray(ref.valid)[1::2].sum() > 0, "test scene never clips — weak test"
     np.testing.assert_array_equal(got.valid.numpy()[1::2], np.asarray(ref.valid)[1::2])
-
-
-@pytest.mark.parametrize("front_ccw", [True, False], ids=["ccw", "cw"])
-@pytest.mark.parametrize("cull", ["back", "front", "none"])
-def test_winding_matches_jax_bit_for_bit(cull, front_ccw):
-    """setup_frame_triangles(front_ccw=False) maps to the kernel's fixed
-    counter-clockwise winding by swapping cull "back" and "front" ("none"
-    unchanged): records, boxes and valid flags bit-equal (int32 views) to
-    JAX's setup run op by op, for every cull mode and both windings."""
-    cfg = dxr.RendererConfig(width=128, height=64)
-    state = dxr.animate(_benchmark(cfg))
-    ref, _ = jax_setup(state, cfg, cull=cull, front_ccw=front_ccw)
-    got, _ = setup_frame_triangles(tp.scene_from_arrays(tp.arrays_from_state(state), device="cpu"),
-                                   tp.RendererConfig(**dataclasses.asdict(cfg)), cull=cull, front_ccw=front_ccw)
-    np.testing.assert_array_equal(got.packed.numpy().view(np.int32), np.asarray(ref.packed).view(np.int32))
-    np.testing.assert_array_equal(got.aabb.numpy().view(np.int32), np.asarray(ref.aabb).view(np.int32))
-    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
-    assert 0 < int(got.valid.sum()) < got.valid.numel()
 
 
 def test_unclipped_setup_matches_jax_on_the_cpu():

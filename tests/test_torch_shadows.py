@@ -12,20 +12,13 @@ side run op by op (as the port's setup is pinned to it):
   dispatches, and the depth-only tile raster at the shadow map's 16 x 128
   tiles bit-equal to JAX rasterize_depth (interpret mode) and to the depth
   plane of the full tile raster;
-* the samplers bit-equal; dense, sparse and sparse + lit PCF visibility
-  bit-equal (given JAX's inverse view-projection), with equal overflow,
-  also where the tile cap overflows;
-* the window-gather PCF (shadow_window_gather): pack_cmp_windows bit-equal
-  to JAX's table; the sparse, lit, tile-cap and bad-quad-cap cases
-  bit-equal to JAX's, the pixels past the bad-quad cap included, with
-  equal overflow; the bad-quad count with the unused tile slots' quads,
-  flipping the overflow at the same cap as JAX's; JAX's blocker scene;
-  the band and dense paths, which ignore the flag;
-* downsampled visibility (shadow_vis_downsample 2 and 3, on a 61 x 253
-  grid that neither divides) within 1e-6: the comparisons at the sampled
-  pixels are the dense path's, and the bilinear upsampling weights round
-  apart in float32 (jax.image.resize against F.interpolate);
+* the samplers bit-equal; pack_cmp_windows bit-equal to JAX's window
+  table; the window-gather PCF on JAX's blocker scene;
 * calibrated light-view tiers (shadow_bin_tiers) in shadow_bin_config.
+
+The PCF visibility against JAX's is in tests/test_torch_shadow_vis.py and
+tests/test_torch_shadow_pcf.py (a port test file collects at most 12
+tests: tests/test_torch_names.py).
 """
 import dataclasses
 
@@ -61,8 +54,8 @@ def t(a):
 
 @pytest.fixture(scope="module")
 def scene():
-    """The JAX scene and its light-view records, camera depth and shadow
-    map, each computed once."""
+    """The JAX scene and its light-view records and shadow map, each
+    computed once."""
     geo = dxr.build_scene_geometry(dxr.procedural.benchmark_meshes(n=4, rings=8, segments=16))
     jstate = dxr.animate(dxr.make_scene(geo, JCFG, lights=dxr.random_point_lights(16, cfg=JCFG),
                                         placement="grid", materials=dxr.Materials.varied(geo.num_meshes)),
@@ -73,11 +66,8 @@ def scene():
     c, _, _ = _fv_transform_cols(jstate.geometry, model @ lvp, model, attrs=False)
     ltris = _setup_cols(c, None, None, jstate.geometry.tri_mesh_id, scfg, cull="none")
     sd, _, s_ovf = jsh.render_shadow_map(jstate, JCFG, return_overflow=True)
-    tris, vp = jax_setup(jstate, JCFG)
-    depth = jax.jit(jax_rasterize, static_argnums=(1, 2))(tris.packed, 64, 256).depth
     return dict(jstate=jstate, tstate=tp.scene_from_arrays(tp.arrays_from_state(jstate), device="cpu"),
-                lvp=lvp, scfg=scfg, ltris=ltris, sd=sd, s_ovf=s_ovf, vp=vp, depth=depth,
-                inv_vp=jnp.linalg.inv(vp))
+                lvp=lvp, scfg=scfg, ltris=ltris, sd=sd, s_ovf=s_ovf)
 
 
 def test_light_view_matrices_bit_equal(scene):
@@ -129,6 +119,15 @@ def test_depth_raster_at_shadow_tiles_matches_jax(scene):
     assert torch.equal(full[raster_tiles.PLANE_DEPTH], got)
 
 
+def _port_vis(scene, jcfg, lit_mask, depth=None, **kw):
+    """The port's shadow_visibility on the scene's JAX inputs -> (vis, overflow)."""
+    return shadows.shadow_visibility(
+        t(scene["depth"] if depth is None else depth), t(scene["vp"]), t(scene["sd"]), t(scene["lvp"]),
+        tp.RendererConfig(**dataclasses.asdict(jcfg)), return_overflow=True,
+        lit_mask=None if lit_mask is None else t(lit_mask), inv_vp=t(scene["inv_vp"]), **kw,
+    )
+
+
 def test_samplers_bit_equal():
     rng = np.random.default_rng(3)
     tex = rng.uniform(0, 1, (37, 53)).astype(np.float32)
@@ -142,83 +141,6 @@ def test_samplers_bit_equal():
                                       np.asarray(jsamp.sample_bilinear(img, uv)))
         np.testing.assert_array_equal(sampling.sample_nearest(t(img), t(uv)).numpy(),
                                       np.asarray(jsamp.sample_nearest(img, uv)))
-
-
-# case -> (config changes, lit mask, overflow).  The window cases take the
-# window-gather PCF (sparse path): bit-equal to the quad path while the
-# bad-quad cap holds; past the cap (8, and the automatic cap of 3 tile
-# slots: overflow 2, the tile cap's and the bad-quad cap's) its zero-tap
-# pixels too are JAX's.
-VIS_CASES = {
-    "dense": (dict(shadow_tiles_cap=0), False, 0),
-    "sparse": (dict(), False, 0),
-    "sparse_lit": (dict(), True, 0),
-    "cap_overflow": (dict(shadow_tiles_cap=3, shadow_tiles_cap_lit=0), False, 1),
-    "window": (dict(shadow_window_gather=True), False, 0),
-    "window_lit": (dict(shadow_window_gather=True), True, 0),
-    "window_cap_overflow": (dict(shadow_window_gather=True, shadow_tiles_cap=3, shadow_tiles_cap_lit=0),
-                            False, 2),
-    "window_bad_quads_cap_8": (dict(shadow_window_gather=True, shadow_bad_quads_cap=8), False, 1),
-}
-
-
-def _lit_mask(lit):
-    return np.random.default_rng(9).uniform(0, 1, (64, 256)) < 0.5 if lit else None
-
-
-def _port_vis(scene, jcfg, lit_mask, depth=None, **kw):
-    """The port's shadow_visibility on the scene's JAX inputs -> (vis, overflow)."""
-    return shadows.shadow_visibility(
-        t(scene["depth"] if depth is None else depth), t(scene["vp"]), t(scene["sd"]), t(scene["lvp"]),
-        tp.RendererConfig(**dataclasses.asdict(jcfg)), return_overflow=True,
-        lit_mask=None if lit_mask is None else t(lit_mask), inv_vp=t(scene["inv_vp"]), **kw,
-    )
-
-
-@pytest.mark.parametrize("case", sorted(VIS_CASES))
-def test_visibility_matches_jax(scene, case):
-    change, lit, expect_overflow = VIS_CASES[case]
-    jcfg = dataclasses.replace(JCFG, **change)
-    lit_mask = _lit_mask(lit)
-    ref, jov = jsh.shadow_visibility(scene["depth"], scene["vp"], scene["sd"], scene["lvp"], jcfg,
-                                     return_overflow=True, lit_mask=lit_mask)
-    got, tov = _port_vis(scene, jcfg, lit_mask)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    assert int(tov) == int(jov) == expect_overflow
-    assert 0.0 < float((got < 1.0).double().mean()) < 0.9  # some pixels in shadow
-    if jcfg.shadow_window_gather:
-        quad, qov = _port_vis(scene, dataclasses.replace(jcfg, shadow_window_gather=False), lit_mask)
-        # Equal to the quad path exactly where the bad-quad cap holds.
-        assert torch.equal(got, quad) == (int(tov) == int(qov))
-
-
-@pytest.mark.parametrize("roll", [0, 24], ids=["as_rendered", "rolled_24_rows"])
-def test_window_bad_quad_count_matches_jax(scene, roll, monkeypatch):
-    """The bad-quad count, the unused tile slots' quads included (they
-    repeat the last tile, as JAX's do): the overflow flips from 1 to 0 at
-    the same cap in both packages.  n_bad is the port's count; JAX's
-    overflow at n_bad - 1 and n_bad shows it is JAX's too.  10 of the 16
-    slots hold covered tiles; rolled down 24 rows, the depth puts bad quads
-    in the last tile, which the 6 unused slots repeat."""
-    depth = np.roll(np.asarray(scene["depth"]), roll, axis=0)
-    jcfg = dataclasses.replace(JCFG, shadow_window_gather=True)
-    rows = []
-    window_rows = shadows._pcf_window_rows
-    monkeypatch.setattr(shadows, "_pcf_window_rows", lambda sd, uv, z, *a, **k: (
-        rows.append(uv), window_rows(sd, uv, z, *a, **k))[1])
-    _port_vis(scene, jcfg, None, depth=depth)
-    bad = shadows.window_quads(t(scene["sd"]), rows[0])[-1]
-    n_cov = int((t(depth).reshape(8, 8, 2, 128).transpose(1, 2).reshape(16, 1024).amin(1) < 1.0).sum())
-    n_bad = int(bad.sum())
-    assert n_cov == 10 and bad.shape[0] == 16  # unused tile slots
-    assert int(bad[n_cov:].sum()) == (6 * 103 if roll else 0)
-    for cap, overflow in ((n_bad - 1, 1), (n_bad, 0)):
-        ccfg = dataclasses.replace(jcfg, shadow_bad_quads_cap=cap)
-        ref, jov = jsh.shadow_visibility(depth, scene["vp"], scene["sd"], scene["lvp"], ccfg,
-                                         return_overflow=True)
-        got, tov = _port_vis(scene, ccfg, None, depth=depth)
-        assert int(tov) == int(jov) == overflow
-        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_window_on_blocker_scene_matches_jax():
@@ -243,20 +165,6 @@ def test_window_on_blocker_scene_matches_jax():
     assert 0.0 < float((got < 1.0).double().mean()) < 0.9
 
 
-@pytest.mark.parametrize("change, rows", [
-    (dict(), dict(y_offset=8, full_height=128)), (dict(shadow_tiles_cap=0), dict()),
-], ids=["band", "dense"])
-def test_window_flag_off_the_sparse_path_changes_nothing(scene, change, rows):
-    """A band of a taller frame and the dense path sample per pixel with
-    the flag or without it, as JAX's do."""
-    jcfg = dataclasses.replace(JCFG, shadow_window_gather=True, **change)
-    ref = jsh.shadow_visibility(scene["depth"], scene["vp"], scene["sd"], scene["lvp"], jcfg, **rows)
-    got, ovf = _port_vis(scene, jcfg, None, **rows)
-    off, _ = _port_vis(scene, dataclasses.replace(jcfg, shadow_window_gather=False), None, **rows)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    assert torch.equal(got, off) and int(ovf) == 0
-
-
 @pytest.mark.parametrize("shape", [(128, 128), (37, 53), (1, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
 def test_pack_cmp_windows_matches_jax(shape):
     """JAX's window table bit for bit, and window_texels reading its rows
@@ -271,20 +179,6 @@ def test_pack_cmp_windows_matches_jax(shape):
     rows = got[(yi + 1) * (Wt + 1) + (xi + 1)]
     assert torch.equal(sampling.window_texels(t(tex), xi, yi).reshape(500, 16), rows)
     assert torch.equal(sampling.window_texels(t(tex), xi, yi, 2).reshape(500, 4), rows[:, [0, 1, 4, 5]])
-
-
-@pytest.mark.parametrize("d", [2, 3])
-def test_downsampled_visibility_matches_jax(scene, d):
-    jcfg = dataclasses.replace(JCFG, shadow_vis_downsample=d)
-    depth = np.asarray(scene["depth"])[:61, :253]
-    ref = jsh.shadow_visibility(depth, scene["vp"], scene["sd"], scene["lvp"], jcfg)
-    got, ovf = shadows.shadow_visibility(
-        t(depth), t(scene["vp"]), t(scene["sd"]), t(scene["lvp"]), tp.RendererConfig(**dataclasses.asdict(jcfg)),
-        return_overflow=True, inv_vp=t(scene["inv_vp"]),
-    )
-    assert got.shape == (61, 253) and int(ovf) == 0
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
-    assert 0.0 < float((got < 1.0).double().mean()) < 0.9  # some pixels in shadow
 
 
 def test_calibrated_shadow_tiers_match_jax():
