@@ -171,8 +171,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
              overflow 0 at 4 calls around the orbit, the last call's frames
              against render_stats at the same clocks (the staged frame for
              the triangle shards) within 1 u8 on < 0.2%, the bytes a rank
-             puts into collectives a frame, ms/frame.  Then
-             dryrun_multichip(4) on the card (its kernel step launches K2).
+             puts into collectives a frame, ms/frame.  Every band and
+             mesh path runs both as each rank's program (the entry point:
+             CUDA graphs between its collectives, parallel/program.py) and
+             eagerly (sharded._render_*_eager), in the same spawns: the
+             captured frames torch.equal to the eager ones at every
+             sampled step and call, overflow equal, the same bytes a frame;
+             graphs, collectives and syncs a frame a rank from the profiler
+             (no kernel launched outside the graphs; on gloo 2 syncs a
+             collective, the staged copies), the plan, capture seconds,
+             pool MiB, ms/frame captured and eager in turns, the card's
+             name and power limit.  Then dryrun_multichip(4) on the card
+             (its kernel step launches K2; its staged steps run the
+             kernels' chain, dryrun.on_device).
 
 Then the card's name and power limit (nvidia-smi), the kernels line (with
 the band entries k6_band, k3_band, k7_band, k2_band, k8_band), and the last line
@@ -184,6 +195,12 @@ with every launch count set to 0 just before it and read just after.
 
 runs the build, the app phase and the graph phase only (~2 minutes): the
 quickest check of step_frame_jit on the card.
+
+    python3 chip_smoke.py --bands
+
+runs the build and the bands phase's spawns only (band and mesh paths,
+captured and eager, then the dry run): the quickest check of the
+multi-device rank programs on the card.
 
     python3 chip_smoke.py --time-staged DIR
 
@@ -732,56 +749,140 @@ def band_sweep_states(tp, state, cfg):
     return out
 
 
-def bands_job(device, scenes, paths, passes: int = 2, frames_per_pass: int = 10):
-    """One band rank of the bands phase (run by parallel.run_bands): each
-    path through render_sharded, with every launch count of this rank set
-    to 0 just before it and read just after: one warm-up frame, the orbit's
-    sampled steps (summed overflow), then `passes` x `frames_per_pass`
-    frames of an advancing clock timed by CUDA events and the host clock.
-    Returns one dict a path; rank 0's carries the last sampled frame."""
+def profile_calls(call, args) -> dict:
+    """call(a) for each a of `args` under the profiler: profile_frames's
+    counts a call."""
+    it = iter(args)
+    return profile_frames(lambda s, c: (s, call(next(it))), None, None, len(args))
+
+
+def graph_record(prog, gloo: bool, capture_s: float, pool_mib: float) -> dict:
+    """A rank program's shape: its backend, graphs and collectives a call,
+    the plan, capture seconds and pool MiB."""
+    return {"gloo": gloo, "graphs": prog.graphs, "collectives": len(prog.collectives), "capture_s": capture_s,
+            "pool_mib": pool_mib, "plan": [f"{op}[{slot}] {list(i)}->{list(o)} {str(dt)[6:]}"
+                                           for slot, op, i, o, dt in prog.plan()]}
+
+
+def capture_first(call, arg, dev):
+    """The first captured call (the program's warm-up, capture and first
+    replay) -> (its result, the program, host seconds, pool MiB: the
+    reserved bytes it added)."""
     import torch
-    import torch.distributed as dist
 
-    import d3d12_deferred_renderer_tpu_torch as tp
-    from d3d12_deferred_renderer_tpu_torch.parallel import render_sharded
-    from d3d12_deferred_renderer_tpu_torch.parallel.launch import kernel_wrappers
+    from d3d12_deferred_renderer_tpu_torch.parallel import render_sharded, sharded
 
-    wrappers = kernel_wrappers()
-    out = []
-    for label, changes, _ in paths:
-        cfg = band_path_config(tp, changes)
-        state = tp.scene_from_arrays(scenes[label], device)
-        reset_launches(wrappers)
-        frames = 1
-        render_sharded(state, cfg)
-        sweep = band_sweep_states(tp, state, cfg)
-        ovf, frame = [], None
-        for s in sweep:
-            frame, stats = render_sharded(s, cfg, return_stats=True)
-            ovf.append(stats["overflow"])
-            frames += 1
-        ovf = [int(o) for o in torch.stack(ovf)]
-        timed = []
-        s = sweep[-1]
-        for _ in range(passes):
+    render_sharded.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    out = call(arg)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    (prog,) = sharded._programs.values()
+    return out, prog, capture_s, (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+
+
+def bytes_of(call, arg) -> int:
+    """The bytes this rank puts into collectives in call(arg)."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import sharded
+
+    sharded.bytes_sent = 0
+    call(arg)
+    return sharded.bytes_sent
+
+
+def timed_in_turns(calls: dict, args_of, passes: int, n: int) -> dict:
+    """{mode: [(CUDA-event ms, host ms) a call, ...]}: `passes` passes of n
+    calls of each mode, the modes in turns (the order reversed every other
+    pass); args_of(mode, k) gives the k-th call's argument."""
+    import torch
+
+    out = {m: [] for m in calls}
+    for p in range(passes):
+        for mode in (list(calls) if p % 2 == 0 else list(calls)[::-1]):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             t_host = time.perf_counter()
             start.record()
-            for _ in range(frames_per_pass):
-                s = tp.animate(s, cfg.yaw_per_frame, cfg)
-                render_sharded(s, cfg)
-                frames += 1
+            for k in range(n):
+                calls[mode](args_of(mode, k))
             end.record()
             torch.cuda.synchronize()
-            timed.append((start.elapsed_time(end) / frames_per_pass,
-                          (time.perf_counter() - t_host) * 1e3 / frames_per_pass))
+            out[mode].append((start.elapsed_time(end) / n, (time.perf_counter() - t_host) * 1e3 / n))
+    return out
+
+
+BAND_TIMED_PASSES, BAND_TIMED_FRAMES = 2, 6  # a mode's passes and frames a pass, in turns
+BAND_PROFILED = {"graph": 4, "eager": 2}     # frames in each mode's profiled window
+
+
+def bands_job(device, scenes, paths):
+    """One band rank of the bands phase (run by parallel.run_bands): each
+    path through render_sharded, as this rank's program (CUDA graphs
+    between its collectives) and eagerly (_render_sharded_eager), with
+    every launch count of this rank set to 0 just before the path and read
+    just after: one eager warm-up frame; the program's first call (its
+    warm-up and capture: 2 frames' launches; capture seconds, pool MiB);
+    at the orbit's sampled steps the captured frame against the eager one
+    (torch.equal, both overflows); one frame's collective bytes each way;
+    BAND_TIMED_PASSES x BAND_TIMED_FRAMES frames of an advancing clock in
+    each mode, in turns, timed by CUDA events and the host clock; one
+    profiled window each.  Returns one dict a path; rank 0's carries the
+    last sampled frame."""
+    import torch
+    import torch.distributed as dist
+
+    import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch.parallel import render_sharded, sharded
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    dev = torch.device(device)
+    out = []
+    for label, changes, _ in paths:
+        cfg = band_path_config(tp, changes)
+        state = tp.scene_from_arrays(scenes[label], device)
+        calls = {"graph": lambda s: render_sharded(s, cfg, return_stats=True),
+                 "eager": lambda s: sharded._render_sharded_eager(s, cfg, return_stats=True)}
+        reset_launches(wrappers)
+        calls["eager"](state)
+        _, prog, capture_s, pool_mib = capture_first(calls["graph"], state, dev)
+        frames = 3  # launches so far: the eager warm-up, the program's warm-up and capture
+        sweep = band_sweep_states(tp, state, cfg)
+        ovf, g_ovf, equal, frame = [], [], [], None
+        for s in sweep:
+            frame, stats = calls["eager"](s)
+            g_frame, g_stats = calls["graph"](s)
+            equal.append(bool(torch.equal(g_frame, frame)))
+            ovf.append(stats["overflow"])
+            g_ovf.append(g_stats["overflow"])
+            frames += 1
+        ovf, g_ovf = [int(o) for o in torch.stack(ovf)], [int(o) for o in torch.stack(g_ovf)]
+        n_bytes = {m: bytes_of(calls[m], sweep[0]) for m in calls}
+        frames += 1
+        clock = {m: [sweep[-1]] for m in calls}
+
+        def advance(mode, k):
+            clock[mode].append(tp.animate(clock[mode][-1], cfg.yaw_per_frame, cfg))
+            return clock[mode][-1]
+
+        timed = timed_in_turns(calls, advance, BAND_TIMED_PASSES, BAND_TIMED_FRAMES)
+        frames += BAND_TIMED_PASSES * BAND_TIMED_FRAMES
+        prof = {m: profile_calls(calls[m], sweep[:n]) for m, n in BAND_PROFILED.items()}
+        frames += BAND_PROFILED["eager"]
         out.append({
             "label": label, "rank": dist.get_rank(), "frames": frames,
             "launches": {w.__name__: w.launches for w in wrappers}, "sampled_overflow": ovf,
-            "passes": timed, "frame_sum": int(frame.to(torch.int64).sum()),
+            "graph_overflow": g_ovf, "graph_equal": equal, "bytes_per_frame": n_bytes,
+            "program": graph_record(prog, sharded.BandGroup.of().staged, capture_s, pool_mib), "profile": prof,
+            "passes": timed["eager"], "graph_passes": timed["graph"], "frame_sum": int(frame.to(torch.int64).sum()),
             "frame": frame.cpu().numpy() if dist.get_rank() == 0 else None,
         })
+        del prog
+        render_sharded.cache_clear()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -833,64 +934,93 @@ def mesh_path_starts():
 def mesh_paths_job(device, scene, paths):
     """One rank of the bands phase's mesh paths (run with bands_job through
     parallel.launch.run_calls): each path on parallel.make_mesh of its
-    axes, with every launch count and the collective byte count of this
-    rank set to 0 just before it and read just after: one warm-up call,
-    then MESH_CALLS calls at clocks around the orbit (summed overflow),
-    the last 3 of them timed by CUDA events and the host clock.  Returns
-    one dict a path; rank 0's carries the last call's frames."""
+    axes, eagerly (the entry point's _eager twin) and as this rank's
+    program, with every launch count of this rank set to 0 just before it
+    and read just after: one eager warm-up call, then MESH_CALLS calls at
+    clocks around the orbit (summed overflow), the last 3 of them timed by
+    CUDA events and the host clock, and the collective bytes a frame; the
+    program's first call (warm-up and capture: 2 calls' launches), at each
+    clock its frames against the eager call's (torch.equal, both
+    overflows), its bytes a frame, 3 calls timed in turns with 3 eager
+    ones, one profiled window each.  Returns one dict a path; rank 0's
+    carries the last call's frames."""
     import torch
     import torch.distributed as dist
 
     import d3d12_deferred_renderer_tpu_torch as tp
-    from d3d12_deferred_renderer_tpu_torch.parallel import (
-        animation_times, make_mesh, render_frames_batch_sharded, render_frames_batch_tri_sharded,
-        render_tri_sharded, sharded,
-    )
+    from d3d12_deferred_renderer_tpu_torch.parallel import animation_times, make_mesh, sharded
     from d3d12_deferred_renderer_tpu_torch.parallel.launch import kernel_wrappers
 
     wrappers = kernel_wrappers()
+    dev = torch.device(device)
     state = tp.scene_from_arrays(scene, device)
+    entries = {"tri": (sharded.render_tri_sharded, sharded._render_tri_sharded_eager),
+               "tri_frames": (sharded.render_frames_batch_tri_sharded, sharded._render_frames_batch_tri_sharded_eager),
+               "frames": (sharded.render_frames_batch_sharded, sharded._render_frames_batch_sharded_eager)}
     out = []
     for label, changes, entry, sizes, names, kw, n_frames in paths:
         cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, **changes)
         mesh = make_mesh(sizes, names)
 
-        def call(start):
+        # Each start's inputs, made before any timed or profiled call.
+        args = {}
+        for start in [0.0, *mesh_path_starts()]:
             times = animation_times(start, n_frames, device=device)
-            if entry == "tri":
-                frame, stats = render_tri_sharded(sharded._with_time(state, times[0]), cfg, mesh,
-                                                  return_stats=True, **kw)
-                return frame[None], stats["overflow"]
-            fn = render_frames_batch_tri_sharded if entry == "tri_frames" else render_frames_batch_sharded
-            frames, stats = fn(state, times, cfg, mesh, return_stats=True, **kw)
-            return frames, stats["overflow"]
+            args[start] = (sharded._with_time(state, times[0]),) if entry == "tri" else (state, times)
 
+        def caller(fn):
+            def call(start):
+                frames, stats = fn(*args[start], cfg, mesh, return_stats=True, **kw)
+                return (frames[None] if entry == "tri" else frames), stats["overflow"]
+            return call
+
+        calls = {"graph": caller(entries[entry][0]), "eager": caller(entries[entry][1])}
+        per_rank = n_frames // mesh.shape.get("frame", 1) if entry != "tri" else 1
         reset_launches(wrappers)
         sharded.bytes_sent = 0
-        call(0.0)  # warm-up
+        calls["eager"](0.0)  # warm-up
         ovf, timed, frames = [], [], None
         for k, start in enumerate(mesh_path_starts()):
             torch.cuda.synchronize()
             t_host = time.perf_counter()
             ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             ev[0].record()
-            frames, o = call(start)
+            frames, o = calls["eager"](start)
             ev[1].record()
             torch.cuda.synchronize()
             ovf.append(int(o))
             if k:
                 timed.append((ev[0].elapsed_time(ev[1]), (time.perf_counter() - t_host) * 1e3))
-        per_rank = n_frames // mesh.shape.get("frame", 1) if entry != "tri" else 1
         rendered = per_rank * (MESH_CALLS + 1)
+        eager_bytes = sharded.bytes_sent / rendered
+
+        _, prog, capture_s, pool_mib = capture_first(calls["graph"], 0.0, dev)
+        g_ovf, equal = [], []
+        for start in mesh_path_starts():
+            g_frames, g_o = calls["graph"](start)
+            e_frames, e_o = calls["eager"](start)
+            equal.append(bool(torch.equal(g_frames, e_frames)))
+            g_ovf.append((int(g_o), int(e_o)))
+        graph_bytes = bytes_of(calls["graph"], 0.0) / per_rank
+        starts = mesh_path_starts()
+        turns = timed_in_turns(calls, lambda mode, k: starts[1 + k], 1, MESH_CALLS - 1)
+        prof = {"graph": profile_calls(calls["graph"], starts[:2]), "eager": profile_calls(calls["eager"], starts[:1])}
+        launch_frames = per_rank * (MESH_CALLS + 1 + 2 + MESH_CALLS + (MESH_CALLS - 1) + 1)
         out.append({
-            "label": label, "rank": dist.get_rank(), "frames_rendered": rendered,
+            "label": label, "rank": dist.get_rank(), "frames_rendered": rendered, "launch_frames": launch_frames,
             "launches": {w.__name__: w.launches for w in wrappers}, "overflow": ovf,
-            "bytes_per_frame": sharded.bytes_sent / rendered,
+            "bytes_per_frame": eager_bytes, "graph_bytes_per_frame": graph_bytes,
+            "graph_overflow": g_ovf, "graph_equal": equal,
+            "program": graph_record(prog, mesh.staged, capture_s, pool_mib), "profile": prof, "per_rank": per_rank,
             "branch": sharded.band_branch(cfg, cfg.height // mesh.shape["rows"]) if entry == "frames" else "staged",
             "ms_per_frame": [t[0] / per_rank for t in timed], "host_ms_per_frame": [t[1] / per_rank for t in timed],
+            "turns_ms_per_frame": {m: [(a / per_rank, b / per_rank) for a, b in v] for m, v in turns.items()},
             "frames_sum": int(frames.to(torch.int64).sum()),
             "frames": frames.cpu().numpy() if dist.get_rank() == 0 else None,
         })
+        del prog
+        sharded.render_tri_sharded.cache_clear()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1752,7 +1882,7 @@ def main() -> int:
     # ---- 22. bands: the band kernels, then render_sharded's paths ----
     t_bands = time.perf_counter()
     band_kernel_phase(tp, state, dev, kernels)
-    band_path_phase(tp, state0, c1_state0, dev, kernels)
+    band_path_phase(tp, state0, c1_state0, dev, kernels, card_name_and_limit())
     emit({"phase": "bands_done", "seconds": time.perf_counter() - t_bands})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
@@ -2607,16 +2737,42 @@ def band_kernel_phase(tp, state, dev, kernels) -> None:
             )
 
 
-def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
+def check_program(where: str, r: dict, eager_bytes, graph_bytes) -> dict:
+    """A rank's program against its eager twin: every sampled frame equal,
+    both overflows equal at every call, the same collective bytes a frame;
+    from the profiled window, one graph launch a graph; on gloo no kernel
+    launched outside the graphs and one staged round trip a collective (the
+    device-to-host copy's and the host-to-device copy's syncs) and no
+    other sync; on NCCL no sync.  Returns the numbers a line reports."""
+    prog, prof = r["program"], r["profile"]["graph"]
+    check(all(r["graph_equal"]), f"{where}: rank {r['rank']}: captured frames differ from eager: {r['graph_equal']}")
+    check(eager_bytes == graph_bytes, f"{where}: rank {r['rank']}: bytes a frame {graph_bytes} captured, "
+                                      f"{eager_bytes} eager")
+    launches = prof["cuda_launch_kernel_per_frame"]
+    got = (prof["cuda_graph_launch_per_frame"], prof["synchronising_calls_per_frame"])
+    want = (float(prog["graphs"]), 2.0 * prog["collectives"] if prog["gloo"] else 0.0)
+    check(got == want and (launches == 0 or not prog["gloo"]),
+          f"{where}: rank {r['rank']}: captured call's (graph launches, syncs) {got}, expected {want}, "
+          f"{launches} kernel launches outside the graphs: {prof}")
+    return {"backend": "gloo" if prog["gloo"] else "nccl", "graphs": prog["graphs"],
+            "collectives": prog["collectives"], "syncs": got[1], "kernel_launches_outside_graphs": launches,
+            "capture_s": prog["capture_s"], "pool_mib": prog["pool_mib"]}
+
+
+def band_path_phase(tp, state0, c1_state0, dev, kernels, card: str) -> None:
     """render_sharded's paths (BAND_PATHS_3 in 3 ranks, BAND_PATHS_4 in 4)
     and the mesh paths (MESH_PATHS_3, MESH_PATHS_4) in the same spawns, the
     ranks sharing this card through a gloo group, then dryrun_multichip(4):
-    each rank's launches (every kernel of the path launched once a frame),
-    the summed overflow 0 at every call, the ranks' frames equal, and the
-    last frames against the single-device render_stats of the same state
-    at the same clock (the staged frame for the triangle shards).  One line
-    a path; the band kernels' launches go to the kernels line, the mesh
-    paths' setup launches to its setup entries."""
+    each rank's launches (every kernel of the path launched once a frame
+    eagerly, twice at the program's capture, never in a replay), the summed
+    overflow 0 at every call, the ranks' frames equal, and the last frames
+    against the single-device render_stats of the same state at the same
+    clock (the staged frame for the triangle shards); each rank's program
+    (check_program) equal to its eager twin at every sampled step and call,
+    its graphs, collectives and syncs a frame, capture seconds, pool MiB,
+    and ms/frame captured and eager.  One line a path; the band kernels'
+    launches go to the kernels line, the mesh paths' setup launches to its
+    setup entries."""
     import torch
 
     from d3d12_deferred_renderer_tpu_torch.parallel import dryrun, run_bands, sharded
@@ -2628,9 +2784,12 @@ def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
     mesh_launches = {w: 0 for w in ("setup_triangles", "fused_tiles", "raster_depth", "setup_depth_triangles",
                                     "raster_tiles", "shade_tiles", "bump_tiles")}
     for n, paths, mpaths in ((3, BAND_PATHS_3, MESH_PATHS_3), (4, BAND_PATHS_4, MESH_PATHS_4)):
+        timing = ("best of the passes, CUDA events and the host clock, captured and eager in turns; " +
+                  ("the ranks share one card through gloo, so this shows the host's work a frame, not a "
+                   "multi-card speed" if n > torch.cuda.device_count() else "a card a rank, NCCL"))
         t0 = time.perf_counter()
         calls = [(bands_job, (scenes, paths)), (mesh_paths_job, (tp.arrays_from_state(state0), mpaths))]
-        ranks = run_bands(n, run_calls, (calls,), device="cuda", timeout_s=420.0)
+        ranks = run_bands(n, run_calls, (calls,), device="cuda", timeout_s=480.0)
         spawn_s = time.perf_counter() - t0
         for k, (label, changes, contract) in enumerate(paths):
             res = [r[0][k] for r in ranks]
@@ -2638,11 +2797,17 @@ def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
             frames = res[0]["frames"]
             expect = {w: 0 for w in res[0]["launches"]}
             expect.update({w: c * frames for w, c in BAND_PATH_LAUNCHES[label].items()})
+            programs = []
             for r in res:
                 check(r["frames"] == frames and r["launches"] == expect,
                       f"bands {label}: rank {r['rank']} launches {r['launches']}, expected {expect}")
                 check(r["sampled_overflow"] == res[0]["sampled_overflow"] and r["frame_sum"] == res[0]["frame_sum"],
                       f"bands {label}: ranks disagree")
+                check(r["graph_overflow"] == r["sampled_overflow"],
+                      f"bands {label}: rank {r['rank']} captured overflow {r['graph_overflow']}")
+                check(r["program"]["plan"] == res[0]["program"]["plan"], f"bands {label}: the ranks' plans differ")
+                programs.append(check_program(f"bands {label}", r, *(r["bytes_per_frame"][m]
+                                                                     for m in ("eager", "graph"))))
             for w in band_launches:
                 band_launches[w] += sum(r["launches"][w] for r in res)
             # Each shadow map is one depth-only setup and one depth raster of
@@ -2667,23 +2832,32 @@ def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
                   "resolution": f"{cfg.width}x{cfg.height}", "frames_per_rank": frames,
                   "launches_per_rank": {w: c for w, c in res[0]["launches"].items() if c},
                   "sampled_steps": len(res[0]["sampled_overflow"]), "sampled_overflow": res[0]["sampled_overflow"],
+                  "captured_equal_to_eager_steps": len(res[0]["graph_equal"]),
                   "vs_single_device": st, "covered_frac": covered,
-                  "ms_per_frame_by_rank": [min(p[0] for p in r["passes"]) for r in res],
-                  "host_ms_per_frame_by_rank": [min(p[1] for p in r["passes"]) for r in res],
-                  "timing": "CUDA events around 10 frames of each rank, best of 2 passes; the ranks share "
-                            "one card, so this shows correctness, not speed",
+                  "bytes_across_ranks_per_frame_by_rank": [r["bytes_per_frame"]["eager"] for r in res],
+                  "program_by_rank": programs, "plan": res[0]["program"]["plan"],
+                  "ms_per_frame_by_rank": {m: [min(p[0] for p in r[key]) for r in res]
+                                           for m, key in (("graph", "graph_passes"), ("eager", "passes"))},
+                  "host_ms_per_frame_by_rank": {m: [min(p[1] for p in r[key]) for r in res]
+                                                for m, key in (("graph", "graph_passes"), ("eager", "passes"))},
+                  "profile_rank0": res[0]["profile"], "card": card, "timing": timing,
                   "spawn_and_run_seconds": spawn_s})
         for k, (label, changes, entry, sizes, names, kw, n_frames) in enumerate(mpaths):
             res = [r[1][k] for r in ranks]
             cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, **changes)
             rendered = res[0]["frames_rendered"]
             expect = {w: 0 for w in res[0]["launches"]}
-            expect.update({w: c * rendered for w, c in MESH_PATH_LAUNCHES[label].items()})
+            expect.update({w: c * res[0]["launch_frames"] for w, c in MESH_PATH_LAUNCHES[label].items()})
+            programs = []
             for r in res:
                 check(r["launches"] == expect, f"mesh {label}: rank {r['rank']} launches {r['launches']}, "
                                                f"expected {expect}")
                 check(r["overflow"] == res[0]["overflow"] and r["frames_sum"] == res[0]["frames_sum"],
                       f"mesh {label}: ranks disagree")
+                check(all(g == e for g, e in r["graph_overflow"]),
+                      f"mesh {label}: rank {r['rank']} captured and eager overflow {r['graph_overflow']}")
+                check(r["program"]["plan"] == res[0]["program"]["plan"], f"mesh {label}: the ranks' plans differ")
+                programs.append(check_program(f"mesh {label}", r, r["bytes_per_frame"], r["graph_bytes_per_frame"]))
                 for w in mesh_launches:
                     mesh_launches[w] += r["launches"][w]
             check(max(res[0]["overflow"]) == 0, f"mesh {label}: overflow {res[0]['overflow']}")
@@ -2699,18 +2873,22 @@ def band_path_phase(tp, state0, c1_state0, dev, kernels) -> None:
                 st = frame_stats(got[i], single)
                 check(st["max_u8"] <= 1 and st["frac_diff"] < 2e-3, f"mesh {label}: frame {i} vs single device: {st}")
                 worst = st if worst is None or st["frac_diff"] > worst["frac_diff"] else worst
+            turns = {m: [min(p[0] for p in r["turns_ms_per_frame"][m]) for r in res] for m in ("graph", "eager")}
             emit({"phase": "bands", "ok": True, "path": label, "entry": entry, "ranks": n,
                   "mesh": dict(zip(names, sizes)), "declared": list(names), "branch": res[0]["branch"],
                   "resolution": f"{cfg.width}x{cfg.height}", "frames_a_call": n_frames,
                   "frames_per_rank": rendered,
                   "launches_per_rank": {w: c for w, c in res[0]["launches"].items() if c},
                   "overflow_by_call": res[0]["overflow"], "vs_single_device_worst_frame": worst,
+                  "captured_equal_to_eager_calls": len(res[0]["graph_equal"]),
                   "single_device": "staged (fused=False)" if entry != "frames" else "the config's own",
                   "bytes_across_ranks_per_frame_by_rank": [r["bytes_per_frame"] for r in res],
-                  "ms_per_frame_by_rank": [min(r["ms_per_frame"]) for r in res],
-                  "host_ms_per_frame_by_rank": [min(r["host_ms_per_frame"]) for r in res],
-                  "timing": f"CUDA events around each of {MESH_CALLS - 1} calls, best, over the frames a rank "
-                            "renders a call; the ranks share one card, so this shows correctness, not speed",
+                  "program_by_rank": programs, "plan": res[0]["program"]["plan"],
+                  "ms_per_frame_by_rank": {"graph": turns["graph"], "eager": turns["eager"],
+                                           "eager_first_loop": [min(r["ms_per_frame"]) for r in res]},
+                  "host_ms_per_frame_by_rank": {
+                      m: [min(p[1] for p in r["turns_ms_per_frame"][m]) for r in res] for m in ("graph", "eager")},
+                  "profile_rank0": res[0]["profile"], "card": card, "timing": timing,
                   "spawn_and_run_seconds": spawn_s})
     t0 = time.perf_counter()
     dry = dryrun.dryrun_multichip(4, device="cuda", timeout_s=300.0)
@@ -3040,9 +3218,37 @@ def graph_only() -> int:
     return 0
 
 
+def bands_only() -> int:
+    """The --bands mode (see the module docstring)."""
+    import collections
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    import d3d12_deferred_renderer_tpu_torch as tp
+    from d3d12_deferred_renderer_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.library()
+    cfg = dataclasses.replace(tp.FLAGSHIP_CONFIG, fused=True)
+    _, state0 = flagship_scene(tp, cfg, dev)
+    _, c1_state0 = config1_scene(tp, tp.REFERENCE_CONFIG, dev)
+    kernels = collections.defaultdict(lambda: {"launches": 0})
+    band_path_phase(tp, state0, c1_state0, dev, kernels, card_name_and_limit())
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    print(card_name_and_limit(), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--graph"]:
         sys.exit(graph_only())
+    if sys.argv[1:] == ["--bands"]:
+        sys.exit(bands_only())
     if sys.argv[1:2] == ["--time-staged"] and len(sys.argv) == 3:
         sys.exit(time_staged(sys.argv[2]))
     if sys.argv[1:2] == ["--time-bump"] and len(sys.argv) == 3:

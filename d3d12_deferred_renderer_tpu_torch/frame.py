@@ -186,7 +186,7 @@ def step_frame(state: SceneState, cfg: RendererConfig) -> Tuple[SceneState, torc
 
 # ---- step_frame_jit: the frame captured once as a CUDA graph ----
 
-GRAPH_CACHE_SIZE = 8  # captured frames kept, least recently used dropped first
+GRAPH_CACHE_SIZE = 8  # captured programs kept, least recently used dropped first
 
 
 def _leaves(state: SceneState) -> list:
@@ -207,36 +207,99 @@ def _frame_program(state: SceneState, cfg: RendererConfig):
     return state, frame, stats["overflow"]
 
 
+# What every captured program shares (step_frame_jit's frame here, a rank's
+# multi-device frame in parallel/program.py): static inputs, a warm-up on a
+# side stream, a loud capture failure, the refusal of what cannot be
+# captured yet and a bounded cache.
+
+
+class _StaticInputs:
+    """A captured program's input buffers, shaped as `tensors`.  load(tensors)
+    copies each tensor into its buffer, skipping one that is the very
+    tensor, unchanged since (its _version), that was copied there last;
+    holding the tensor keeps its memory from being reused by another one."""
+
+    def __init__(self, tensors):
+        self.bufs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+        self._src = [None] * len(self.bufs)
+
+    def load(self, tensors) -> None:
+        for k, (t, buf) in enumerate(zip(tensors, self.bufs)):
+            src = self._src[k]
+            if src is not None and src[0] is t and src[1] == t._version:
+                continue
+            buf.copy_(t)
+            self._src[k] = (t, t._version)
+
+    def overwritten(self, k: int) -> None:
+        """Buffer k was written in place: the next load copies into it."""
+        self._src[k] = None
+
+
+def _static_key(tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _warm_up(run, dev) -> torch.cuda.Stream:
+    """run() once on a new side stream of `dev`, ordered after the current
+    stream's work and before its next: it builds the kernels and fills every
+    lru_cache the program reads, so that a capture holds device work only.
+    Returns the side stream."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return side
+
+
+def _capture_failed(what: str, e: Exception) -> RuntimeError:
+    return RuntimeError(
+        f"{what}: capturing the frame failed ({type(e).__name__}: {e}); a host read or a host-to-device "
+        "copy inside the frame cannot be captured")
+
+
+def _check_capturable(cfg: RendererConfig, what: str) -> None:
+    """Refuse, before capture, a configuration that cannot be captured yet."""
+    if not cfg.use_pallas:
+        raise NotImplementedError(
+            f"{what} cannot capture this frame on the card yet: use_pallas=False runs the plain versions, "
+            "whose per-slot loops read tile counts on the host (ROADMAP.md Queue 1 item 7)")
+
+
+def _cached(cache: collections.OrderedDict, key, make):
+    """cache[key], made by make() at the first call; at most
+    GRAPH_CACHE_SIZE entries, the least recently used dropped first."""
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key]
+    value = make()
+    cache[key] = value
+    while len(cache) > GRAPH_CACHE_SIZE:
+        cache.popitem(last=False)
+    return value
+
+
 class _CapturedFrame:
     """One configuration's frame (animate + render_stats) captured in a CUDA
     graph on static input and output buffers.
 
-    load(state) copies the caller's leaves into the static inputs, skipping
-    a leaf that is the very tensor, unchanged since (its _version), that was
-    copied there last; replay() runs the graph; feed_back() makes the
-    animated state the next replay's input (render_batch).  A leaf that the
-    frame passes through unchanged comes back as the caller's own tensor, as
+    load(state) copies the caller's leaves into the static inputs
+    (_StaticInputs); replay() runs the graph; feed_back() makes the animated
+    state the next replay's input (render_batch).  A leaf that the frame
+    passes through unchanged comes back as the caller's own tensor, as
     step_frame returns it; every other output is cloned, so nothing
     returned aliases memory that a later replay writes."""
 
     def __init__(self, state: SceneState, cfg: RendererConfig):
-        leaves = _leaves(state)
         self.cfg = cfg
-        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in leaves]
-        # (tensor, _version) each input was copied from; holding the tensor
-        # keeps its memory from being reused by another one.
-        self._src = [None] * len(leaves)
+        self.static = _StaticInputs(_leaves(state))
+        self.inputs = self.static.bufs
         self.load(state)
         static_state = _rebuild(self.inputs)
         dev = self.inputs[0].device
         with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                # Warm-up: builds the kernels and fills every lru_cache the
-                # frame reads, so that the capture holds device work only.
-                _frame_program(static_state, cfg)
-            torch.cuda.current_stream(dev).wait_stream(side)
+            _warm_up(lambda: _frame_program(static_state, cfg), dev)
             self.graph = torch.cuda.CUDAGraph()
             try:
                 # thread_local: a host sync in this thread breaks the capture;
@@ -244,19 +307,12 @@ class _CapturedFrame:
                 with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                     out_state, self.frame, self.overflow = _frame_program(static_state, cfg)
             except RuntimeError as e:  # torch.AcceleratorError among them
-                raise RuntimeError(
-                    f"step_frame_jit: capturing the frame failed ({type(e).__name__}: {e}); a host read "
-                    "or a host-to-device copy inside the frame cannot be captured") from e
+                raise _capture_failed("step_frame_jit", e) from e
         self.outputs = _leaves(out_state)
         self._passed = [o is i for o, i in zip(self.outputs, self.inputs)]
 
     def load(self, state: SceneState) -> None:
-        for k, (leaf, buf) in enumerate(zip(_leaves(state), self.inputs)):
-            src = self._src[k]
-            if src is not None and src[0] is leaf and src[1] == leaf._version:
-                continue
-            buf.copy_(leaf)
-            self._src[k] = (leaf, leaf._version)
+        self.static.load(_leaves(state))
 
     def replay(self) -> None:
         self.graph.replay()
@@ -267,7 +323,7 @@ class _CapturedFrame:
         for k, passed in enumerate(self._passed):
             if not passed:
                 self.inputs[k].copy_(self.outputs[k])
-                self._src[k] = None
+                self.static.overwritten(k)
 
     def state_out(self, state: SceneState) -> SceneState:
         """The animated state of the last replay, for a load of `state`."""
@@ -283,19 +339,10 @@ def _captured(state: SceneState, cfg: RendererConfig) -> _CapturedFrame:
     captured at the first call (refused before capture for a configuration
     that cannot be captured yet)."""
     leaves = _leaves(state)
-    key = (cfg, leaves[0].device, tuple((tuple(t.shape), t.dtype) for t in leaves))
-    if key in _graphs:
-        _graphs.move_to_end(key)
-        return _graphs[key]
-    if not cfg.use_pallas:
-        raise NotImplementedError(
-            "step_frame_jit cannot capture this frame on the card yet: use_pallas=False runs the plain "
-            "versions, whose per-slot loops read tile counts on the host (ROADMAP.md Queue 1 item 7)")
-    graph = _CapturedFrame(state, cfg)
-    _graphs[key] = graph
-    while len(_graphs) > GRAPH_CACHE_SIZE:
-        _graphs.popitem(last=False)
-    return graph
+    key = (cfg, leaves[0].device, _static_key(leaves))
+    if key not in _graphs:
+        _check_capturable(cfg, "step_frame_jit")
+    return _cached(_graphs, key, lambda: _CapturedFrame(state, cfg))
 
 
 def _eager(state: SceneState) -> bool:

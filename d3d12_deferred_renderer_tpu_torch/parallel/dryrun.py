@@ -5,13 +5,15 @@ Each step builds its scene, config and mesh, renders through a multi-device
 entry point and asserts the frames against the single-device frames of the
 same states (Lambert exact, PBR within 1 u8 on fewer than 0.2% of pixels):
 
-- run_staged: frames x screen-row bands on the plain chain, with the full
-  cross-band stack (replicated shadow map and banded PCF, bloom, FXAA);
+- run_staged: frames x screen-row bands on the plain chain (on the card
+  the kernels' staged chain: on_device), with the full cross-band stack
+  (replicated shadow map and banded PCF, bloom, FXAA);
 - run_kernels (JAX's run_interpret): frames x row bands through the
   kernels' path (cfg.use_pallas, the fused tile renderer's band mode), held
   against the staged single-device frame of the plain chain;
 - run_three_axis: frames x triangle shards x row bands on the mesh
-  declared ("frame", "tri", "rows"), an order that differs from the
+  declared ("frame", "tri", "rows") (on the card the kernels' staged
+  chain), an order that differs from the
   shading's (rows major, tri minor): the composition the JAX package
   shipped with an axis-order defect in its round 4.
 
@@ -46,6 +48,14 @@ def kernel_config() -> RendererConfig:
     are the staged step's."""
     return RendererConfig(width=128, height=64, use_pallas=True, fused=True, shading="pbr",
                           shadows=False, bloom=False, fxaa=False)
+
+
+def on_device(cfg: RendererConfig, device) -> RendererConfig:
+    """The staged steps' config on the rank's device: on the card the
+    kernels' staged chain (use_pallas), which the entry points run as one
+    program a rank; the plain chain's per-slot loops read tile counts on the
+    host and cannot be captured (ROADMAP.md Queue 1 item 7)."""
+    return dataclasses.replace(cfg, use_pallas=True) if torch.device(device).type == "cuda" else cfg
 
 
 def dryrun_scene(cfg: RendererConfig, device):
@@ -88,7 +98,7 @@ def run_staged(device) -> None:
     from .mesh import make_mesh
     from .sharded import animation_times, render_frames_batch_sharded
 
-    cfg = staged_config()
+    cfg = on_device(staged_config(), device)
     state = dryrun_scene(cfg, device)
     frames, rows = factor_axes(dist.get_world_size(), cfg.height)
     mesh = make_mesh((frames, rows), ("frame", "rows"))
@@ -134,7 +144,7 @@ def run_three_axis(device) -> None:
     against single-device frames."""
     from .sharded import animation_times, render_frames_batch_tri_sharded
 
-    cfg = staged_config()
+    cfg = on_device(staged_config(), device)
     state = dryrun_scene(cfg, device)
     mesh, frames = three_axis_mesh(dist.get_world_size())
     batch = max(frames, 2)
@@ -168,6 +178,6 @@ def dryrun_multichip(n: int, device: str = "cuda", timeout_s: float = 600.0) -> 
 
 
 __all__ = [
-    "staged_config", "kernel_config", "dryrun_scene", "factor_axes", "assert_matches_single_device",
+    "staged_config", "kernel_config", "on_device", "dryrun_scene", "factor_axes", "assert_matches_single_device",
     "run_staged", "run_kernels", "three_axis_mesh", "run_three_axis", "dryrun_multichip",
 ]

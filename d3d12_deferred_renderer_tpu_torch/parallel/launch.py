@@ -18,9 +18,11 @@ is killed before it returns.
 The jobs the tests run, each on scenes carried as convert.py's arrays:
 ``sharded_frames`` (render_sharded), ``mesh_frames`` (render_tri_sharded and
 the two batch entry points on a mesh of the job's axes) and ``tri_planes``
-(the triangle shards' composited fragment planes); ``mesh_lines`` reports a
-mesh's axis groups, ``run_calls`` runs several jobs in one group and
-``counted`` a job with the kernels' launch counts.
+(the triangle shards' composited fragment planes); on the card
+``captured_and_eager`` holds the entry points' rank programs to their eager
+bodies and ``refusal`` reports what render_sharded refuses; ``mesh_lines``
+reports a mesh's axis groups, ``run_calls`` runs several jobs in one group
+and ``counted`` a job with the kernels' launch counts.
 """
 from __future__ import annotations
 
@@ -147,6 +149,77 @@ def mesh_frames(device, items):
     return out
 
 
+def _entry_call(state, cfg, entry, mesh, kw, start, eager=False):
+    """One call of multi-device entry `entry` ("sharded", "tri", "frames" or
+    "tri_frames"; on `mesh` but "sharded"), captured on the card or eager,
+    at clock `start` (a batch entry: keywords["frames"] clocks of
+    animation_times from it) -> (uint8 frames, int32 overflow)."""
+    from . import sharded
+
+    fns = {"sharded": (sharded.render_sharded, sharded._render_sharded_eager),
+           "tri": (sharded.render_tri_sharded, sharded._render_tri_sharded_eager),
+           "frames": (sharded.render_frames_batch_sharded, sharded._render_frames_batch_sharded_eager),
+           "tri_frames": (sharded.render_frames_batch_tri_sharded, sharded._render_frames_batch_tri_sharded_eager)}
+    fn = fns[entry][int(eager)]
+    kw = dict(kw)
+    n_frames = kw.pop("frames", None)
+    if entry == "sharded":
+        out, stats = fn(sharded._with_time(state, start), cfg, return_stats=True)
+    elif n_frames is None:
+        out, stats = fn(sharded._with_time(state, start), cfg, mesh, return_stats=True, **kw)
+    else:
+        times = sharded.animation_times(start, n_frames, device=state.time.device)
+        out, stats = fn(state, times, cfg, mesh, return_stats=True, **kw)
+    return out, stats["overflow"]
+
+
+def captured_and_eager(device, items):
+    """The captured entry points against their eager bodies: each (arrays,
+    cfg, axis sizes, axis names, entry, keywords, clocks) -> {"equal": at
+    each clock the captured frames torch.equal to the eager ones and the
+    overflow counts equal, "overflow": the captured counts, "kept": the
+    first call's frames unchanged after the later calls, "graphs" and
+    "collectives": the program's counts}; the programs are dropped after
+    each item."""
+    from ..convert import scene_from_arrays
+    from . import sharded
+    from .mesh import make_mesh
+
+    out = []
+    for arrays, cfg, sizes, names, entry, kw, clocks in items:
+        state = scene_from_arrays(arrays, device)
+        mesh = None if entry == "sharded" else make_mesh(sizes, names)
+        sharded._programs.clear()
+        equal, overflow, first = [], [], None
+        for t in clocks:
+            got, g_ovf = _entry_call(state, cfg, entry, mesh, kw, t)
+            want, e_ovf = _entry_call(state, cfg, entry, mesh, kw, t, eager=True)
+            equal.append(bool(torch.equal(got, want)) and int(g_ovf) == int(e_ovf))
+            overflow.append(int(g_ovf))
+            if first is None:
+                first = (got, got.clone())
+        (prog,) = sharded._programs.values()
+        out.append({"equal": equal, "overflow": overflow, "kept": bool(torch.equal(*first)),
+                    "graphs": prog.graphs, "collectives": len(prog.collectives)})
+        sharded._programs.clear()
+    return out
+
+
+def refusal(device, arrays, cfg):
+    """render_sharded of the scene on this rank -> the message of the
+    NotImplementedError it raises, None where it raises nothing; no rank
+    program is made either way."""
+    from ..convert import scene_from_arrays
+    from . import sharded
+
+    try:
+        sharded.render_sharded(scene_from_arrays(arrays, device), cfg)
+    except NotImplementedError as e:
+        assert not sharded._programs
+        return str(e)
+    return None
+
+
 def tri_planes(device, items):
     """The composited fragment planes of the triangle shards: each (arrays,
     cfg, axis sizes, axis names, tri axis, rows axis) -> [H, W, 7] float32
@@ -158,7 +231,7 @@ def tri_planes(device, items):
 
     out = []
     for arrays, cfg, sizes, names, tri_axis, rows_axis in items:
-        plan = sharded._tri_plan(cfg, make_mesh(sizes, names), tri_axis, rows_axis)
+        plan = sharded._tri_plan(cfg, *sharded._tri_handles(make_mesh(sizes, names), tri_axis, rows_axis))
         _, _, merged = sharded._render_tri_band(scene_from_arrays(arrays, device), cfg, plan)
         out.append(plan.axes.all_gather_tiled(sharded._stack_planes(merged)).cpu().numpy())
     return out

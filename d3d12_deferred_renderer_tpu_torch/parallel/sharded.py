@@ -59,18 +59,32 @@ block form over the band's world positions, as JAX's band path runs it.
 The composite keeps every bit of the winner's planes: the masked ranks
 add -0.0, the one value whose sum leaves every float unchanged (-0.0 as
 well), where JAX's psum of +0.0 makes a -0.0 depth or attribute +0.0.
+
+JAX runs each entry point as one compiled SPMD program.  So does the port,
+a program a rank, on the card: the entry point's eager body (``_*_body``)
+warmed up once and captured as CUDA graphs between its collectives
+(parallel/program.py), a program for each (entry point, cfg, the axes'
+backend, index and size, the axis names, device, input shapes) kept in a
+cache of frame.GRAPH_CACHE_SIZE (each entry point's ``cache_clear`` drops
+them).  Its refusals are raised before any collective and before capture
+(``_*_call``); use_pallas=False on the card is refused as step_frame_jit
+refuses it.  On a CPU state and under utils.debug.debug_layer the body runs
+eagerly; ``_render_*_eager`` run it eagerly on the card too, for the
+checks that hold the programs to it.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..config import RendererConfig
-from ..frame import _fused_eligible
+from ..convert import FIELDS
+from ..frame import _cached, _check_capturable, _eager, _fused_eligible, _leaves, _rebuild, _static_key
 from ..ops import post
 from ..ops.bump import apply_normal_mapping, bump_tiles
 from ..ops.fused import render_fused
@@ -86,6 +100,7 @@ from ..ops.transform import setup_frame_triangles
 from ..scene import SceneState, _mod, default_device
 from ..xmath import XM_2PI
 from .mesh import Mesh
+from .program import RankProgram
 
 # The bytes this rank has put into collectives since the last reset (each
 # collective's input buffer counted once): what crosses ranks.
@@ -123,14 +138,18 @@ class BandGroup(NamedTuple):
         _count(x)
         return x.cpu() if self.staged else x.contiguous()
 
+    def gather_stacked(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x, stacked in axis order -> [total, *x.shape]."""
+        src = self._send(x)
+        out = src.new_empty((self.total, *src.shape))
+        dist.all_gather(list(out.unbind(0)), src, group=self.group)
+        return out.to(x.device)
+
     def all_gather_tiled(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's x, concatenated along `dim` in axis order."""
         if self.total == 1:
             return x
-        src = self._send(x)
-        parts = [torch.empty_like(src) for _ in range(self.total)]
-        dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, dim).to(x.device)
+        return torch.cat(list(self.gather_stacked(x).unbind(0)), dim)
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         if self.total == 1:
@@ -344,21 +363,36 @@ def _check_band_safe(cfg: RendererConfig, band: int) -> None:
         )
 
 
+def _sharded_body(state: SceneState, cfg: RendererConfig, g):
+    """render_sharded's eager body for band handle g -> (uint8 [H, W, 3],
+    the int32 overflow summed over the bands)."""
+    band = cfg.height // g.total
+    frame, overflow = _render_band(state, cfg, g.index * band, band, g)
+    return g.all_gather_tiled(frame), g.sum(overflow)
+
+
+def _sharded_call(state: SceneState, cfg: RendererConfig, group=None) -> "_Call":
+    g = BandGroup.of(group)
+    if cfg.height % g.total:
+        raise ValueError(f"height {cfg.height} not divisible by {g.total} bands")
+    _check_band_safe(cfg, cfg.height // g.total)
+    return _Call("render_sharded", _sharded_body, cfg, state, None, (g,), ())
+
+
 def render_sharded(state: SceneState, cfg: RendererConfig, group=None, return_stats: bool = False):
     """One frame, screen rows split over the ranks of `group` (the default
     process group when None) -> uint8 [H, W, 3], the whole frame on every
     rank; with return_stats also {"overflow": the int32 overflow count
     summed over the bands} (the single-device render_stats signal).  Every
-    rank of the group calls it with the same state and config."""
-    g = BandGroup.of(group)
-    if cfg.height % g.total:
-        raise ValueError(f"height {cfg.height} not divisible by {g.total} bands")
-    band = cfg.height // g.total
-    _check_band_safe(cfg, band)
-    frame, overflow = _render_band(state, cfg, g.index * band, band, g)
-    frame = g.all_gather_tiled(frame)
-    overflow = g.sum(overflow)
-    return (frame, {"overflow": overflow}) if return_stats else frame
+    rank of the group calls it with the same state and config.  On the card
+    it runs as this rank's program (_run); refusals are raised before any
+    collective."""
+    return _run(_sharded_call(state, cfg, group), return_stats)
+
+
+def _render_sharded_eager(state: SceneState, cfg: RendererConfig, group=None, return_stats: bool = False):
+    """render_sharded op by op, on the card too: what its program is held to."""
+    return _run(_sharded_call(state, cfg, group), return_stats, eager=True)
 
 
 # ---------------------------------------------------------------------------
@@ -432,13 +466,6 @@ def _composite_tri(frags: FragmentPlanes, tri: BandGroup) -> FragmentPlanes:
     return _unstack_planes(tri.sum_scatter(contrib))
 
 
-def _shade_axes(mesh: Mesh, rows_axis, tri_axis: str) -> BandAxes:
-    """The shading's band handle: bands over rows major, tri minor, which
-    matches y0 = rows_idx * band_h + tri_idx * sub_h for any order of the
-    mesh's declaration."""
-    return BandAxes.of(mesh, (rows_axis, tri_axis) if rows_axis else (tri_axis,))
-
-
 class _TriPlan(NamedTuple):
     tri: BandGroup
     axes: BandAxes  # (rows, tri), major -> minor
@@ -447,12 +474,21 @@ class _TriPlan(NamedTuple):
     sub: int        # rows a rank shades: band / n_tri
 
 
-def _tri_plan(cfg: RendererConfig, mesh: Mesh, tri_axis: str, rows_axis) -> _TriPlan:
-    """The triangle shards' split of the frame, its refusals raised before
-    any collective: the height by the rows axis, each band by the tri axis
-    (the shading's sub-bands), and _check_band_safe of the sub-band."""
+def _tri_handles(mesh: Mesh, tri_axis: str, rows_axis) -> Tuple[BandGroup, BandGroup]:
+    """The (tri, rows) band handles; without a rows axis one band of every
+    row (no collective)."""
     tri = BandGroup.of_axis(mesh, tri_axis)
     rows = BandGroup.of_axis(mesh, rows_axis) if rows_axis else BandGroup(None, 0, 1, mesh.staged)
+    return tri, rows
+
+
+def _tri_plan(cfg: RendererConfig, tri, rows) -> _TriPlan:
+    """The triangle shards' split of the frame, its refusals raised before
+    any collective: the height by the rows axis, each band by the tri axis
+    (the shading's sub-bands), and _check_band_safe of the sub-band.  The
+    shading's band handle takes rows major, tri minor, which matches y0 =
+    rows_idx * band + tri_idx * sub for any order of the mesh's
+    declaration."""
     n_t, n_r = tri.total, rows.total
     if cfg.height % n_r:
         raise ValueError(f"height {cfg.height} not divisible by {n_r} bands")
@@ -461,7 +497,7 @@ def _tri_plan(cfg: RendererConfig, mesh: Mesh, tri_axis: str, rows_axis) -> _Tri
         raise ValueError(f"band height {band} not divisible by {n_t} triangle shards (shading sub-bands)")
     sub = band // n_t
     _check_band_safe(cfg, sub)
-    return _TriPlan(tri, _shade_axes(mesh, rows_axis, tri_axis), rows.index * band, band, sub)
+    return _TriPlan(tri, BandAxes((rows, tri)), rows.index * band, band, sub)
 
 
 def _render_tri_band(state: SceneState, cfg: RendererConfig, plan: _TriPlan):
@@ -473,6 +509,20 @@ def _render_tri_band(state: SceneState, cfg: RendererConfig, plan: _TriPlan):
     color, s_overflow = _shade_band(merged, state, cfg, view_proj, inv_vp, plan.y0_band + plan.tri.index * plan.sub,
                                     plan.axes, bumped=False)
     return color, r_overflow + s_overflow, merged
+
+
+def _tri_body(state: SceneState, cfg: RendererConfig, tri, rows):
+    """render_tri_sharded's eager body for the (tri, rows) handles."""
+    plan = _tri_plan(cfg, tri, rows)
+    color, overflow, _ = _render_tri_band(state, cfg, plan)
+    return plan.axes.all_gather_tiled(color), plan.axes.sum(overflow)
+
+
+def _tri_call(state: SceneState, cfg: RendererConfig, mesh: Mesh, tri_axis: str = "tri",
+              rows_axis: str | None = None) -> "_Call":
+    handles = _tri_handles(mesh, tri_axis, rows_axis)
+    _tri_plan(cfg, *handles)
+    return _Call("render_tri_sharded", _tri_body, cfg, state, None, handles, (tri_axis, rows_axis))
 
 
 def render_tri_sharded(state: SceneState, cfg: RendererConfig, mesh: Mesh, tri_axis: str = "tri",
@@ -489,12 +539,14 @@ def render_tri_sharded(state: SceneState, cfg: RendererConfig, mesh: Mesh, tri_a
     needs the planes between raster and shading): on the card it equals the
     single-device staged frame (cfg.fused=False).  Every rank of the mesh
     calls it with the same state and config; ranks on other axes render
-    the same frame."""
-    plan = _tri_plan(cfg, mesh, tri_axis, rows_axis)
-    color, overflow, _ = _render_tri_band(state, cfg, plan)
-    frame = plan.axes.all_gather_tiled(color)
-    overflow = plan.axes.sum(overflow)
-    return (frame, {"overflow": overflow}) if return_stats else frame
+    the same frame.  On the card it runs as this rank's program (_run)."""
+    return _run(_tri_call(state, cfg, mesh, tri_axis, rows_axis), return_stats)
+
+
+def _render_tri_sharded_eager(state: SceneState, cfg: RendererConfig, mesh: Mesh, tri_axis: str = "tri",
+                              rows_axis: str | None = None, return_stats: bool = False):
+    """render_tri_sharded op by op, on the card too."""
+    return _run(_tri_call(state, cfg, mesh, tri_axis, rows_axis), return_stats, eager=True)
 
 
 # ---------------------------------------------------------------------------
@@ -527,26 +579,68 @@ def _frame_share(times: torch.Tensor, frames: BandGroup):
     return times[frames.index * per : (frames.index + 1) * per]
 
 
+def _frames_body(state: SceneState, times: torch.Tensor, cfg: RendererConfig, frames, rows):
+    """render_frames_batch_sharded's eager body for the (frame, rows)
+    handles: this rank's frames one after another, each with its own bloom
+    and FXAA collectives, then the batch gathered."""
+    band = cfg.height // rows.total
+    out, overflow = [], torch.zeros((), dtype=torch.int32, device=state.time.device)
+    for t in _frame_share(times, frames):
+        color, ovf = _render_band(_with_time(state, t), cfg, rows.index * band, band, rows)
+        out.append(color)
+        overflow = overflow + ovf
+    return frames.all_gather_tiled(rows.all_gather_tiled(torch.stack(out), dim=1)), frames.sum(rows.sum(overflow))
+
+
+def _frames_call(state: SceneState, times: torch.Tensor, cfg: RendererConfig, mesh: Mesh, frame_axis: str = "frame",
+                 rows_axis: str = "rows") -> "_Call":
+    frames, rows = BandGroup.of_axis(mesh, frame_axis), BandGroup.of_axis(mesh, rows_axis)
+    if times.shape[0] % frames.total or cfg.height % rows.total:
+        raise ValueError("batch/height not divisible by mesh axes")
+    _check_band_safe(cfg, cfg.height // rows.total)
+    return _Call("render_frames_batch_sharded", _frames_body, cfg, state, times, (frames, rows),
+                 (frame_axis, rows_axis))
+
+
 def render_frames_batch_sharded(state: SceneState, times: torch.Tensor, cfg: RendererConfig, mesh: Mesh,
                                 frame_axis: str = "frame", rows_axis: str = "rows", return_stats: bool = False):
     """Frames at animation clocks `times` [B] -> uint8 [B, H, W, 3] on every
     rank: the frames split over mesh axis `frame_axis` (B / n_frame a rank,
     each at its own clock), the rows of each in bands over `rows_axis`
     (render_sharded's branches).  With return_stats also {"overflow": the
-    count summed over every band of every frame}."""
-    frames, rows = BandGroup.of_axis(mesh, frame_axis), BandGroup.of_axis(mesh, rows_axis)
-    if times.shape[0] % frames.total or cfg.height % rows.total:
-        raise ValueError("batch/height not divisible by mesh axes")
-    band = cfg.height // rows.total
-    _check_band_safe(cfg, band)
+    count summed over every band of every frame}.  On the card it runs as
+    this rank's program (_run), its B / n_frame frames unrolled in it."""
+    return _run(_frames_call(state, times, cfg, mesh, frame_axis, rows_axis), return_stats)
+
+
+def _render_frames_batch_sharded_eager(state: SceneState, times: torch.Tensor, cfg: RendererConfig, mesh: Mesh,
+                                       frame_axis: str = "frame", rows_axis: str = "rows",
+                                       return_stats: bool = False):
+    """render_frames_batch_sharded op by op, on the card too."""
+    return _run(_frames_call(state, times, cfg, mesh, frame_axis, rows_axis), return_stats, eager=True)
+
+
+def _frames_tri_body(state: SceneState, times: torch.Tensor, cfg: RendererConfig, frames, tri, rows):
+    """render_frames_batch_tri_sharded's eager body for the (frame, tri,
+    rows) handles."""
+    plan = _tri_plan(cfg, tri, rows)
     out, overflow = [], torch.zeros((), dtype=torch.int32, device=state.time.device)
     for t in _frame_share(times, frames):
-        color, ovf = _render_band(_with_time(state, t), cfg, rows.index * band, band, rows)
+        color, ovf, _ = _render_tri_band(_with_time(state, t), cfg, plan)
         out.append(color)
         overflow = overflow + ovf
-    batch = frames.all_gather_tiled(rows.all_gather_tiled(torch.stack(out), dim=1))
-    overflow = frames.sum(rows.sum(overflow))
-    return (batch, {"overflow": overflow}) if return_stats else batch
+    return frames.all_gather_tiled(plan.axes.all_gather_tiled(torch.stack(out), dim=1)), frames.sum(plan.axes.sum(overflow))
+
+
+def _frames_tri_call(state: SceneState, times: torch.Tensor, cfg: RendererConfig, mesh: Mesh,
+                     frame_axis: str = "frame", tri_axis: str = "tri", rows_axis: str | None = None) -> "_Call":
+    frames = BandGroup.of_axis(mesh, frame_axis)
+    if times.shape[0] % frames.total:
+        raise ValueError("batch/height not divisible by mesh axes")
+    tri, rows = _tri_handles(mesh, tri_axis, rows_axis)
+    _tri_plan(cfg, tri, rows)
+    return _Call("render_frames_batch_tri_sharded", _frames_tri_body, cfg, state, times, (frames, tri, rows),
+                 (frame_axis, tri_axis, rows_axis))
 
 
 def render_frames_batch_tri_sharded(state: SceneState, times: torch.Tensor, cfg: RendererConfig, mesh: Mesh,
@@ -556,16 +650,76 @@ def render_frames_batch_tri_sharded(state: SceneState, times: torch.Tensor, cfg:
     frames over `frame_axis`, the triangle stream over `tri_axis` and, with
     `rows_axis`, rows in bands: the three axes composed (render_tri_sharded
     for each of a rank's frames).  With return_stats also {"overflow": the
-    count summed over every axis}."""
-    frames = BandGroup.of_axis(mesh, frame_axis)
-    if times.shape[0] % frames.total:
-        raise ValueError("batch/height not divisible by mesh axes")
-    plan = _tri_plan(cfg, mesh, tri_axis, rows_axis)
-    out, overflow = [], torch.zeros((), dtype=torch.int32, device=state.time.device)
-    for t in _frame_share(times, frames):
-        color, ovf, _ = _render_tri_band(_with_time(state, t), cfg, plan)
-        out.append(color)
-        overflow = overflow + ovf
-    batch = frames.all_gather_tiled(plan.axes.all_gather_tiled(torch.stack(out), dim=1))
-    overflow = frames.sum(plan.axes.sum(overflow))
-    return (batch, {"overflow": overflow}) if return_stats else batch
+    count summed over every axis}.  On the card it runs as this rank's
+    program (_run)."""
+    return _run(_frames_tri_call(state, times, cfg, mesh, frame_axis, tri_axis, rows_axis), return_stats)
+
+
+def _render_frames_batch_tri_sharded_eager(state: SceneState, times: torch.Tensor, cfg: RendererConfig, mesh: Mesh,
+                                           frame_axis: str = "frame", tri_axis: str = "tri",
+                                           rows_axis: str | None = None, return_stats: bool = False):
+    """render_frames_batch_tri_sharded op by op, on the card too."""
+    return _run(_frames_tri_call(state, times, cfg, mesh, frame_axis, tri_axis, rows_axis), return_stats, eager=True)
+
+
+# ---------------------------------------------------------------------------
+# Each rank's call as one program
+# ---------------------------------------------------------------------------
+
+
+class _Call(NamedTuple):
+    """One rank's call of a multi-device entry point, its refusals passed:
+    body(state, [times,] cfg, *handles) -> (uint8 frames, int32 overflow)."""
+
+    entry: str
+    body: Callable
+    cfg: RendererConfig
+    state: SceneState
+    times: Optional[torch.Tensor]  # the batch's clocks; None for one frame
+    handles: tuple                 # the band handles (BandGroup) of the body's collectives
+    names: tuple                   # the mesh axis names the caller gave
+
+    def inputs(self) -> list:
+        return _leaves(self.state) + ([] if self.times is None else [self.times])
+
+    def body_of_inputs(self, tensors, handles):
+        """The body on `tensors` laid out as inputs() lays them."""
+        n = len(FIELDS)
+        args = (_rebuild(tensors[:n]),) if self.times is None else (_rebuild(tensors[:n]), tensors[n])
+        return self.body(*args, self.cfg, *handles)
+
+    def key(self) -> tuple:
+        tensors = self.inputs()
+        return (self.entry, self.cfg, tuple((h.staged, h.index, h.total) for h in self.handles), self.names,
+                tensors[0].device, _static_key(tensors))
+
+
+# The rank programs of this process: at most frame.GRAPH_CACHE_SIZE, the
+# least recently used dropped first (with its graphs and memory pool).
+_programs: "collections.OrderedDict[tuple, RankProgram]" = collections.OrderedDict()
+
+
+def _program(call: _Call) -> RankProgram:
+    """The call's rank program, warmed up and captured at the first call of
+    its key (refused before then for a configuration that cannot be
+    captured yet)."""
+    key = call.key()
+    if key not in _programs:
+        _check_capturable(call.cfg, call.entry)
+    return _cached(_programs, key, lambda: RankProgram(call.body_of_inputs, call.inputs(), call.handles, call.entry))
+
+
+def _run(call: _Call, return_stats: bool, eager: bool = False):
+    """The entry point's result: the eager body on a CPU state, under
+    utils.debug.debug_layer and where asked; else this rank's program
+    (program.RankProgram), replayed on this call's inputs and handles."""
+    if eager or _eager(call.state):
+        frames, overflow = call.body_of_inputs(call.inputs(), call.handles)
+    else:
+        frames, overflow = _program(call)(call.inputs(), call.handles)
+    return (frames, {"overflow": overflow}) if return_stats else frames
+
+
+for _entry in (render_sharded, render_tri_sharded, render_frames_batch_sharded, render_frames_batch_tri_sharded):
+    _entry.cache_clear = _programs.clear  # drops every rank program of this process
+del _entry

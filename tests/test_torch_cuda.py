@@ -1033,10 +1033,12 @@ def test_render_sharded_two_ranks_share_the_card(config):
 def test_render_tri_sharded_two_ranks_share_the_card():
     """render_tri_sharded in 2 ranks sharing the card (gloo) on the staged
     config 4 at 256x64: each rank's slice through K6, the composite, K8 on
-    its 32-row composited sub-band, the shadow map (K4, K3) and K7, once
-    each; the composited planes bit-equal (int32 views: the depth's sign of
-    zero too) to the single-device tile raster's, the frame within 1 u8 on
-    < 0.2% of the single-device staged frame, overflow 0 summed."""
+    its 32-row composited sub-band, the shadow map (K4, K3) and K7, each
+    launched twice by its wrapper (the rank program's warm-up and capture;
+    its replay launches through no wrapper); the composited planes
+    bit-equal (int32 views: the depth's sign of zero too) to the
+    single-device tile raster's, the frame within 1 u8 on < 0.2% of the
+    single-device staged frame, overflow 0 summed."""
     from d3d12_deferred_renderer_tpu_torch.parallel import run_bands, sharded
     from d3d12_deferred_renderer_tpu_torch.parallel.launch import counted, mesh_frames, run_calls, tri_planes
 
@@ -1055,9 +1057,116 @@ def test_render_tri_sharded_two_ranks_share_the_card():
         assert overflow == int(sstats["overflow"]) == 0
         assert _close_u8(torch.from_numpy(frame).to(dev, torch.int32), single.to(torch.int32), 2e-3)
         assert {w: c for w, c in launches.items() if c} == {
-            "setup_triangles": 1, "raster_tiles": 1, "bump_tiles": 1, "setup_depth_triangles": 1,
-            "raster_depth": 1, "shade_tiles": 1}
+            "setup_triangles": 2, "raster_tiles": 2, "bump_tiles": 2, "setup_depth_triangles": 2,
+            "raster_depth": 2, "shade_tiles": 2}
         assert torch.equal(torch.from_numpy(planes).view(torch.int32), ref.view(torch.int32))
+
+
+# ---- the multi-device entry points as one program a rank ----
+
+BAND_GRAPH_CLOCKS = [0.0, 2.1, 4.2]
+
+
+def _band_graph_config(name):
+    """640x384 (bands of 192 and 128 rows: whole 8-row tiles, bloom's 4x
+    downsample) for the fused flagship and the unsplit config 4 with FXAA."""
+    base = dataclasses.replace(tp.FLAGSHIP_CONFIG, width=640, height=384, fused=True)
+    if name == "fused_flagship":
+        return base
+    return dataclasses.replace(CONFIG4, width=640, height=384, deferred_directional=False,
+                               inkernel_light_cull=False, fxaa=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,config,collectives", [(2, "fused_flagship", 2), (3, "config4_unsplit_fxaa", 4)])
+def test_captured_render_sharded_equals_eager(ranks, config, collectives):
+    """render_sharded in 2 and 3 ranks sharing the card (gloo), as each
+    rank's program (CUDA graphs between its collectives): at 3 clocks around
+    the orbit the frame torch.equal to the eager band frame
+    (_render_sharded_eager), the overflow equal and 0; the first call's
+    frame unchanged by the later calls; the collectives a frame (frame
+    gather, overflow sum; with bloom and FXAA their gathers mid-frame) and
+    one graph more."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import run_bands
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import captured_and_eager
+
+    dev = _cuda()
+    cfg = _band_graph_config(config)
+    state = _scene(cfg, dev)
+    items = [(tp.arrays_from_state(state), cfg, (ranks,), ("rows",), "sharded", {}, BAND_GRAPH_CLOCKS)]
+    for (r,) in run_bands(ranks, captured_and_eager, (items,), timeout_s=300.0):
+        assert r["equal"] == [True] * 3 and r["overflow"] == [0] * 3 and r["kept"], r
+        assert (r["collectives"], r["graphs"]) == (collectives, collectives + 1), r
+
+
+@pytest.mark.cuda
+def test_captured_mesh_paths_equal_eager():
+    """In 2 ranks sharing the card: render_tri_sharded of the staged config 4
+    over 2 triangle shards (the composite's min, min and sum_scatter, the
+    bloom gather, the frame gather, the overflow sum) and
+    render_frames_batch_sharded of 2 frames over frame 2 x rows 1 (the batch
+    gather, the overflow sum), each captured: at 2 clocks torch.equal to the
+    eager entry point's frames, overflow equal and 0."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import run_bands
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import captured_and_eager
+
+    dev = _cuda()
+    c4 = dataclasses.replace(CONFIG4, fused=False)
+    fused = _band_graph_config("fused_flagship")
+    items = [(tp.arrays_from_state(_scene(c4, dev)), c4, (2,), ("tri",), "tri", {}, [0.0, 3.0]),
+             (tp.arrays_from_state(_scene(fused, dev)), fused, (2, 1), ("frame", "rows"), "frames",
+              dict(frames=2), [0.0, 3.0])]
+    for tri, frames in run_bands(2, captured_and_eager, (items,), timeout_s=300.0):
+        for r, collectives in ((tri, 6), (frames, 2)):
+            assert r["equal"] == [True] * 2 and r["overflow"] == [0] * 2 and r["kept"], r
+            assert (r["collectives"], r["graphs"]) == (collectives, collectives + 1), r
+
+
+@pytest.mark.cuda
+def test_captured_one_rank_is_a_value_and_debug_layer_runs_eager():
+    """One rank on the card: a program of one graph and no collective; the
+    first call's frame unchanged by a second call on another state (the
+    result is a value), each equal to the eager frame; under debug_layer
+    the call runs eagerly and makes no program."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import render_sharded, sharded
+    from d3d12_deferred_renderer_tpu_torch.utils import debug_layer
+
+    dev = _cuda()
+    cfg = dataclasses.replace(FUSED_SMALL, height=128)
+    state = _scene(cfg, dev)
+    later = tp.animate(state, 1.0, cfg)
+    dist = _one_rank_group()
+    try:
+        render_sharded.cache_clear()
+        first = render_sharded(state, cfg)
+        kept = first.clone()
+        second = render_sharded(later, cfg)
+        torch.cuda.synchronize()
+        (prog,) = sharded._programs.values()
+        assert (prog.graphs, len(prog.collectives)) == (1, 0)
+        assert torch.equal(first, kept) and not torch.equal(first, second)
+        assert torch.equal(first, sharded._render_sharded_eager(state, cfg))
+        assert torch.equal(second, sharded._render_sharded_eager(later, cfg))
+        render_sharded.cache_clear()
+        with debug_layer():
+            got = render_sharded(state, cfg)
+        assert not sharded._programs and torch.equal(got, first)
+    finally:
+        render_sharded.cache_clear()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_captured_band_refuses_plain_chain_on_every_rank():
+    """use_pallas=False (the plain versions' host loops) is refused on every
+    rank before warm-up and capture, naming ROADMAP.md Queue 1 item 7."""
+    from d3d12_deferred_renderer_tpu_torch.parallel import run_bands
+    from d3d12_deferred_renderer_tpu_torch.parallel.launch import refusal
+
+    dev = _cuda()
+    cfg = dataclasses.replace(FUSED_SMALL, use_pallas=False, fused=False)
+    msgs = run_bands(2, refusal, (tp.arrays_from_state(_scene(cfg, dev)), cfg), timeout_s=120.0)
+    assert len(msgs) == 2 and all(m and "ROADMAP.md Queue 1 item 7" in m for m in msgs), msgs
 
 
 # ---- the application path (runtime/, render_batch, supersampling) ----
