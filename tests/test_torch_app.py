@@ -3,8 +3,7 @@
 The JAX package's contracts of tests/test_runtime.py (the present queue's
 depth and FIFO order, App, save_frames_to_dir, PassProfiler) and
 tests/test_native_sink.py (the native frame sink) on the port, and the
-Chrome trace.  (Split from tests/test_torch_runtime.py: a port test file
-collects at most 12 tests, see tests/test_torch_names.py.)
+Chrome trace.  (Split from tests/test_torch_runtime.py.)
 """
 import json
 import os

@@ -29,8 +29,7 @@ to both packages:
   frame.)
 
 The light cull, the lighting and the PCF on a band are in
-tests/test_torch_band_light.py (a port test file collects at most 12
-tests, see tests/test_torch_names.py).
+tests/test_torch_band_light.py.
 """
 import dataclasses
 import functools

@@ -4,8 +4,7 @@ The contract of tests/test_band_axes.py: BandAxes's band index and gather
 order are pure functions of the mesh coordinates, for both declaration
 orders; and the triangle shards' composite keeps the first slice's sign of
 zero whichever sign the backend's minimum returns.  No JAX reference, no
-spawn.  (Split from tests/test_torch_tri_sharded.py: a port test file
-collects at most 12 tests, see tests/test_torch_names.py.)
+spawn.  (Split from tests/test_torch_tri_sharded.py.)
 """
 import threading
 

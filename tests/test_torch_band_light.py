@@ -14,8 +14,7 @@ setup and reference raster on the CPU) given to both packages:
   overflow, also for a config whose whole frame takes the sparse path;
 * binning's tier budgets scaled by the full frame's area.
 
-(Split from tests/test_torch_band.py: a port test file collects at most 12
-tests, see tests/test_torch_names.py.)
+(Split from tests/test_torch_band.py.)
 """
 import dataclasses
 

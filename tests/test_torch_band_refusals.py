@@ -3,8 +3,7 @@ and the height check), as tests/test_parallel.py and
 tests/test_band_raster.py hold JAX's: a band too short for the bloom's
 downsampling, the bump's tiles or the PCF's downsampling, and a height that
 the band count does not divide, each raised before the first collective.
-No spawn.  (Split from tests/test_torch_parallel.py: a port test file
-collects at most 12 tests, see tests/test_torch_names.py.)
+No spawn.  (Split from tests/test_torch_parallel.py.)
 """
 
 import pytest

@@ -5,7 +5,7 @@ tests/test_sampling_debug.py:91-111: a good scene passes, each defect gets
 JAX's message; a NaN light intensity raises FloatingPointError inside the
 scope (staged and fused frames) and renders silently outside; the scope
 restores the previous state on an exception.  (Split from
-tests/test_torch_io.py: a port test file collects at most 12 tests.)
+tests/test_torch_io.py.)
 """
 import dataclasses
 import os

@@ -9,8 +9,7 @@
 * close() shuts the worker down and raises a failed present's error.
 
 Against JAX's queue and unthreaded: tests/test_torch_delta_jax.py; the miss
-bucket: tests/test_torch_delta_bucket.py (a port test file collects at
-most 12 tests, see tests/test_torch_names.py).
+bucket: tests/test_torch_delta_bucket.py.
 """
 import os
 

@@ -1,7 +1,6 @@
 """PyTorch port: the delta queue's miss bucket (runtime/delta._pow2_at_least):
 the least power of two at or above n, below 2 n.  (Split from
-tests/test_torch_delta.py: a port test file collects at most 12 tests, see
-tests/test_torch_names.py.)
+tests/test_torch_delta.py.)
 """
 import pytest
 

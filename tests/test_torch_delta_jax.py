@@ -10,8 +10,7 @@
 * threaded=False decodes on the caller's thread: the same frames, bytes
   and misses as the worker's.
 
-(Split from tests/test_torch_delta.py: a port test file collects at most
-12 tests, see tests/test_torch_names.py.)
+(Split from tests/test_torch_delta.py.)
 """
 
 import jax.numpy as jnp

@@ -8,8 +8,7 @@
 * The overflow warning of render: JAX's message on a frame that overflows
   a capacity cap, none on a frame that does not.
 
-(Split from tests/test_torch_frame.py: a port test file collects at most
-12 tests, see tests/test_torch_names.py.)
+(Split from tests/test_torch_frame.py.)
 """
 import dataclasses
 import os

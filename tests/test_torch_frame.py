@@ -11,8 +11,7 @@
   port must never import JAX.
 
 The entry points' window-gather flag, instancing and the overflow warning
-are in tests/test_torch_entry.py (a port test file collects at most 12
-tests, see tests/test_torch_names.py).
+are in tests/test_torch_entry.py.
 """
 import ast
 import dataclasses

@@ -11,8 +11,7 @@
   other's files.
 
 The OBJ loaders are in tests/test_torch_obj.py, validate_scene and the
-debug layer in tests/test_torch_debug.py (a port test file collects at
-most 12 tests: tests/test_torch_names.py).
+debug layer in tests/test_torch_debug.py.
 """
 import dataclasses
 import os

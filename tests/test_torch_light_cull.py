@@ -14,8 +14,7 @@ view-projection, and numpy-made lights.  Contracts:
   (interpret=True), with and without a visibility plane, at the tolerance of
   test_lighting.py's kernel test (rtol 2e-4, atol 2e-5), equal overflow.
 
-(Split from tests/test_torch_lighting.py: a port test file collects at most
-12 tests, see tests/test_torch_names.py.)
+(Split from tests/test_torch_lighting.py.)
 """
 import dataclasses
 

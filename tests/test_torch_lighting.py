@@ -10,8 +10,7 @@ its view-projection, and numpy-made lights.  Contracts:
 * post (Reinhard, gamma, uint8) within float32 rounding, uint8 equal.
 
 The light cull and the lighting kernel's plain version are in
-tests/test_torch_light_cull.py (a port test file collects at most 12
-tests, see tests/test_torch_names.py).
+tests/test_torch_light_cull.py.
 """
 import dataclasses
 

@@ -14,10 +14,9 @@ besides its pipeline, against the JAX package on the same inputs.
   multiply-adds; the port's staged frames are pinned through the Pallas
   raster's interpret mode, tests/test_torch_raster.py).
 
-And the guard of the port's test files: none but tests/test_torch_cuda.py
-collects more than 12 tests.
+And the guard of the test schedule's list, HEAVIEST_FIRST in the
+repository's root conftest.py.
 """
-import collections
 import dataclasses
 
 import jax.numpy as jnp
@@ -107,24 +106,22 @@ def test_rasterize_matches_jax():
     assert (got.mesh_id.numpy() >= 0).mean() > 0.3
 
 
-# Under pytest-xdist every worker imports every test module when it
-# collects, so this sets torch's CPU threads in each worker: six workers of
-# eight OpenMP threads each, beside JAX's own pools, oversubscribe the
-# cores, and a plain-version test then takes 10-75 times its time alone.
-torch.set_num_threads(1)
-
-# A port test file collects at most this many tests.  pytest-xdist's
-# --dist loadfile queues files by their count of collected tests, largest
-# first; the suite's longest file, the JAX package's tests/test_tri_sharded.py
-# (13 tests), must start among the first.  tests/test_torch_cuda.py is
-# exempt: without a card its tests skip in seconds.
-PORT_FILE_TESTS = 12
-
-
-def test_port_test_files_collect_at_most_12(request):
-    """Holds for every port test file in the session (trivially when one
-    file runs alone)."""
-    counts = collections.Counter(item.path.name for item in request.session.items)
-    big = {name: n for name, n in counts.items()
-           if name.startswith("test_torch_") and name != "test_torch_cuda.py" and n > PORT_FILE_TESTS}
-    assert not big, f"port test files over {PORT_FILE_TESTS} tests (split them): {big}"
+def test_heaviest_files_come_first(request):
+    """Every entry of HEAVIEST_FIRST names a file under tests/ and, for an
+    entry "file::test", a test defined in that file, so a renamed or moved
+    test fails here.  The second half, that the session's listed work units
+    come first and in the list's order, holds trivially when only some files
+    run; it shows only that the sort ran, not that the list holds every heavy
+    unit."""
+    root = request.config.rootpath
+    schedule = request.config.pluginmanager.get_plugin(str(root / "conftest.py"))
+    missing = []
+    for entry in schedule.HEAVIEST_FIRST:
+        file, _, test = entry.partition("::")
+        path = root / schedule.TESTS / file
+        if not path.is_file() or (test and f"def {test}(" not in path.read_text()):
+            missing.append(entry)
+    assert not missing, f"HEAVIEST_FIRST lists what is not under tests/: {missing}"
+    rank = {entry: i for i, entry in enumerate(schedule.HEAVIEST_FIRST)}
+    ranks = [rank.get(schedule.work_unit(item.nodeid), len(rank)) for item in request.session.items]
+    assert ranks == sorted(ranks), "the listed work units are not first, in the list's order"

@@ -3,8 +3,7 @@
 The port's native and Python loaders equal to JAX's Python loader on the
 assets and on tests/test_native_loader.py's edge and degenerate cases (both
 raising where JAX raises); load_obj takes the native loader by default, and
-a native parse error propagates.  (Split from tests/test_torch_io.py: a port
-test file collects at most 12 tests, see tests/test_torch_names.py.)
+a native parse error propagates.  (Split from tests/test_torch_io.py.)
 """
 import os
 

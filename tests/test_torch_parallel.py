@@ -29,8 +29,7 @@ scene arrays.  Contracts (tests/test_parallel.py, tests/test_band_raster.py):
   device="cpu".
 
 Every refusal of _check_band_safe and the height check are in
-tests/test_torch_band_refusals.py (a port test file collects at most 12
-tests, see tests/test_torch_names.py).
+tests/test_torch_band_refusals.py.
 """
 import dataclasses
 

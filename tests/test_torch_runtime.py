@@ -12,8 +12,7 @@
   rendered at s times the size, rounded half to even.
 
 The present queue, App, the profiler and the native sink are in
-tests/test_torch_app.py (a port test file collects at most 12 tests, see
-tests/test_torch_names.py).
+tests/test_torch_app.py.
 """
 import dataclasses
 import os

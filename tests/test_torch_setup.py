@@ -8,8 +8,7 @@ tolerance.  The port writes its matrix products and sums in a fixed order,
 so on these scenes it is in fact bit-equal to the op-by-op JAX setup.  The
 instanced_600 case (600 meshes, each triangle's matrices selected by its
 mesh id) pins the many-mesh contract.  The winding and cull modes are in
-tests/test_torch_winding.py (a port test file collects at most 12 tests,
-see tests/test_torch_names.py).
+tests/test_torch_winding.py.
 """
 import dataclasses
 

@@ -12,8 +12,7 @@ packages' shadow_visibility given the same arrays:
   pixels are the dense path's, and the bilinear upsampling weights round
   apart in float32 (jax.image.resize against F.interpolate).
 
-(Split from tests/test_torch_shadows.py: a port test file collects at most
-12 tests, see tests/test_torch_names.py.)
+(Split from tests/test_torch_shadows.py.)
 """
 import dataclasses
 

@@ -11,8 +11,7 @@ camera setup run op by op, as the port's setup is pinned to it):
   cap included, with equal overflow; the bad-quad count with the unused
   tile slots' quads, flipping the overflow at the same cap as JAX's.
 
-(Split from tests/test_torch_shadows.py: a port test file collects at most
-12 tests, see tests/test_torch_names.py.)
+(Split from tests/test_torch_shadows.py.)
 """
 import dataclasses
 

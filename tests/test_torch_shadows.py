@@ -17,8 +17,7 @@ side run op by op (as the port's setup is pinned to it):
 * calibrated light-view tiers (shadow_bin_tiers) in shadow_bin_config.
 
 The PCF visibility against JAX's is in tests/test_torch_shadow_vis.py and
-tests/test_torch_shadow_pcf.py (a port test file collects at most 12
-tests: tests/test_torch_names.py).
+tests/test_torch_shadow_pcf.py.
 """
 import dataclasses
 

@@ -27,8 +27,7 @@ tests/test_tri_sharded.py and tests/test_dryrun.py:
 * the dry run's three steps (dryrun_multichip's job) in 4 ranks, and its
   helpers equal to JAX's.
 
-A port test file collects at most 12 tests (tests/test_torch_names.py):
-the 3-rank spawn, the refusals and the clock helpers are in
+The 3-rank spawn, the refusals and the clock helpers are in
 tests/test_torch_tri_shards3.py, BandAxes and the composite's sign of zero
 (ranks simulated by threads) in tests/test_torch_band_axes.py.
 """

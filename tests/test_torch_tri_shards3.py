@@ -14,8 +14,7 @@ tests/test_dryrun.py:
   dryrun_multichip without a card);
 * animation_times and _with_time bit-equal to JAX's; band_branch as JAX's.
 
-The 4-rank spawn is in tests/test_torch_tri_sharded.py (a port test file
-collects at most 12 tests, see tests/test_torch_names.py).
+The 4-rank spawn is in tests/test_torch_tri_sharded.py.
 """
 import dataclasses
 import itertools

@@ -5,8 +5,7 @@ counter-clockwise winding by swapping cull "back" and "front" ("none"
 unchanged): records, boxes and valid flags bit-equal (int32 views) to JAX's
 setup run op by op, for every cull mode and both windings, through the
 setup kernel's plain version on the CPU.  (Split from
-tests/test_torch_setup.py: a port test file collects at most 12 tests, see
-tests/test_torch_names.py.)
+tests/test_torch_setup.py.)
 """
 import dataclasses
 
